@@ -1,21 +1,21 @@
-"""ca_lanczos_tpu — a TPU-native communication-avoiding Lanczos framework.
+"""ca_lanczos_tpu — a communication-avoiding Lanczos framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the MATLAB
+Built from scratch in JAX/XLA with the capabilities of the MATLAB
 reference ``magnusgrandin/ca-lanczos`` (Hoemmen-style CA-Lanczos): standard,
 s-step, explicitly- and implicitly-restarted (CA-)Lanczos eigensolvers plus
 Lanczos time propagators, with monomial and Newton (Leja-shifted) Krylov
 bases and four (re)orthogonalization strategies.
 
-Architecture (TPU-first, not a MATLAB port):
+Architecture (accelerator-first, not a MATLAB port):
 
 * Large arrays (operators, Krylov multivectors) live on device as JAX
   arrays; heavy ops (matrix powers, block Gram products, TSQR) are jitted
-  and, where beneficial, Pallas kernels.
+  plain XLA.
 * Small matrices (R factors, the tridiagonal T, change-of-basis Bk, Leja
   shift selection, the omega recurrence) are O(s^2) host math in float64.
-* Multi-chip distribution is row-sharding over a ``jax.sharding.Mesh``
-  axis ``'rows'``; halo exchange rides ``ppermute`` on ICI, TSQR reduces
-  R factors via an all-gather tree — see ``ca_lanczos_tpu.parallel``.
+* Multi-device distribution is row-sharding over a ``jax.sharding.Mesh``
+  axis ``'rows'``; halo exchange rides ``ppermute``, TSQR reduces R
+  factors via an all-gather tree — see ``ca_lanczos_tpu.parallel``.
 """
 
 from ca_lanczos_tpu.config import Basis, Orth, LejaVariant, RestartStrategy, QrMethod, OrthParams, LanczosConfig

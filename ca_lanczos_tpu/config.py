@@ -58,10 +58,10 @@ class QrMethod(str, enum.Enum):
     """Normalizer backend for the tall-skinny QR.
 
     TSQR (Householder via XLA) is the parity default; CHOLQR2 (two
-    Cholesky-QR passes, pure Gram matmuls on the MXU) is the TPU
-    production choice — XLA's Householder QR of tall-skinny operands is
-    minutes-slow on TPU, while CholQR2 is two GEMMs + a replicated small
-    Cholesky with equivalent orthogonality for well-conditioned blocks.
+    Cholesky-QR passes, pure Gram matmuls) is the throughput choice —
+    Householder QR is a sequence of panel updates, while CholQR2 is two
+    GEMMs + a replicated small Cholesky with equivalent orthogonality
+    for well-conditioned blocks.
     """
 
     TSQR = "tsqr"
@@ -85,8 +85,8 @@ class OrthParams:
         Cholesky/R factors, triangular solves — to float64 while the
         basis and SpMV stay in the storage dtype (f32/bf16).  The Gram
         psum is tiny, so this buys reference-grade eigenpairs at f32
-        memory bandwidth (the TPU-native answer to f32's ~1e-2 eigenvalue
-        error on large operators).  Requires ``jax_enable_x64=True``
+        memory bandwidth (an answer to f32's ~1e-2 eigenvalue error on
+        large operators).  Requires ``jax_enable_x64=True``
         (otherwise the f64 casts silently truncate back to f32).
     """
 

@@ -5,8 +5,6 @@ from ca_lanczos_tpu.ops.matrix_powers import (
     matrix_powers_monomial,
     matrix_powers_newton,
 )
-from ca_lanczos_tpu.ops.pallas_spmv import matrix_powers_dia_pallas, pick_tile
-from ca_lanczos_tpu.ops.pell import PellMatrix, matrix_powers_pell, pell_apply
 from ca_lanczos_tpu.ops.formats import (
     OperatorRoute,
     dia_from_scipy,
@@ -27,11 +25,6 @@ __all__ = [
     "matrix_powers",
     "matrix_powers_monomial",
     "matrix_powers_newton",
-    "matrix_powers_dia_pallas",
-    "pick_tile",
-    "PellMatrix",
-    "matrix_powers_pell",
-    "pell_apply",
     "OperatorRoute",
     "dia_from_scipy",
     "load_operator_npz",

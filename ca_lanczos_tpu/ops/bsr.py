@@ -1,10 +1,10 @@
-"""BSR (block sparse row) operator: dense (bm, bn) tiles on the MXU.
+"""BSR (block sparse row) operator: dense (bm, bn) tiles.
 
 The north-star scaling config runs s-step CA-Lanczos on a >=10M-row BSR
-matrix (BASELINE.json configs[4]).  BSR is the production format for
-FEM/multiphysics operators whose sparsity comes in dense node blocks: the
-SpMV becomes a batched (kb) small-matmul contraction — MXU work instead
-of the ELL path's scalar gathers.
+matrix (BASELINE.json configs[4]).  BSR is the format for FEM/multiphysics
+operators whose sparsity comes in dense node blocks: the SpMV becomes a
+batched (kb) small-matmul contraction — one gather per block instead of
+the ELL path's per-entry gathers.
 
 Layout: ``vals[i, j]`` is the dense (bm, bn) tile of block-row i at
 block-column ``cols[i, j]``; padding tiles are all-zero with an in-range
@@ -20,6 +20,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.tree_util import register_dataclass
+
+from ca_lanczos_tpu.ops.precision import einsum
 
 
 @register_dataclass
@@ -56,11 +58,11 @@ class BsrMatrix:
         nb, kb, bm, bn = self.vals.shape
         if x.ndim == 1:
             xb = x.reshape(-1, bn)[self.cols]  # (nb, kb, bn)
-            y = jnp.einsum("ikab,ikb->ia", self.vals, xb)
+            y = einsum("ikab,ikb->ia", self.vals, xb)
             return y.reshape(nb * bm)
         m = x.shape[1]
         xb = x.reshape(-1, bn, m)[self.cols]  # (nb, kb, bn, m)
-        y = jnp.einsum("ikab,ikbm->iam", self.vals, xb)
+        y = einsum("ikab,ikbm->iam", self.vals, xb)
         return y.reshape(nb * bm, m)
 
     def to_dense(self) -> jax.Array:
@@ -108,17 +110,13 @@ class BsrMatrix:
     def to_dia(self, max_offsets: int = 64):
         """Scalar-DIA view of a block-BANDED operator (host conversion).
 
-        TPU-first finding (round 5): on 128-lane hardware the 8x8 block
-        structure buys nothing — a block-banded BSR converts to a
-        ~(2*bm*bandwidth)-diagonal scalar DIA whose powers ride the
-        banded kernels (9-diagonal headline: 657 Gnnz/s; a 31-diagonal
-        operator is planes-traffic-bound near ~150) vs ~6 Gnnz/s for the
-        gather-based block contraction (BENCHMARKS.md round-5 BSR
-        section; exp/bsr_dia_bench.py measures the converted rate).  Each
+        A block-banded BSR converts to a ~(2*bm*bandwidth)-diagonal
+        scalar DIA whose powers need no gather at all (which of the two
+        is faster on a given card is a measurement, not a rule).  Each
         block entry A[bm*i+b, bm*j+c] lands on scalar offset
         bm*(j-i) + (c-b); raises when the structural block offsets would
         need more than ``max_offsets`` scalar diagonals (unstructured
-        block sparsity — keep BSR or route the scalar view to PELL).
+        block sparsity — keep BSR).
         """
         from ca_lanczos_tpu.ops.spmv import DiaMatrix
 

@@ -2,7 +2,7 @@
 
 Complex (n,) vectors ride as (n, 2) real arrays [re, im]; complex (n, m)
 multivectors as (n, 2, m).  Every device op below is pure real
-arithmetic (TPU-safe on backends without complex lowering); the small
+arithmetic (for backends or kernels without complex lowering); the small
 complex m x m factors live on host as numpy complex128.
 
 Used by the split CA propagator (solvers.propagators.ca_lanczos_prop_split):
@@ -18,12 +18,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ca_lanczos_tpu.ops.precision import einsum, mm
+
 
 def split_gram(Q: jax.Array, X: jax.Array) -> np.ndarray:
     """R = Q^H X for split multivectors Q (n,2,m), X (n,2,p) -> complex
     (m, p) on host.  Re R = Qre.Xre + Qim.Xim; Im R = Qre.Xim - Qim.Xre."""
-    Rr = jnp.einsum("nci,ncj->ij", Q, X)
-    Ri = jnp.einsum("ni,nj->ij", Q[:, 0, :], X[:, 1, :]) - jnp.einsum(
+    Rr = einsum("nci,ncj->ij", Q, X)
+    Ri = einsum("ni,nj->ij", Q[:, 0, :], X[:, 1, :]) - einsum(
         "ni,nj->ij", Q[:, 1, :], X[:, 0, :]
     )
     return np.asarray(Rr, np.float64) + 1j * np.asarray(Ri, np.float64)
@@ -33,8 +35,8 @@ def split_gram(Q: jax.Array, X: jax.Array) -> np.ndarray:
 def _split_apply(X: jax.Array, Q: jax.Array, Rr: jax.Array, Ri: jax.Array) -> jax.Array:
     """X - Q @ (Rr + i Ri) in split form."""
     Qre, Qim = Q[:, 0, :], Q[:, 1, :]
-    Xre = X[:, 0, :] - (Qre @ Rr - Qim @ Ri)
-    Xim = X[:, 1, :] - (Qre @ Ri + Qim @ Rr)
+    Xre = X[:, 0, :] - (mm(Qre, Rr) - mm(Qim, Ri))
+    Xim = X[:, 1, :] - (mm(Qre, Ri) + mm(Qim, Rr))
     return jnp.stack([Xre, Xim], axis=1)
 
 
@@ -55,7 +57,7 @@ def _split_matmul(X: jax.Array, Mr: jax.Array, Mi: jax.Array) -> jax.Array:
     """X @ (Mr + i Mi) in split form."""
     Xre, Xim = X[:, 0, :], X[:, 1, :]
     return jnp.stack(
-        [Xre @ Mr - Xim @ Mi, Xre @ Mi + Xim @ Mr], axis=1
+        [mm(Xre, Mr) - mm(Xim, Mi), mm(Xre, Mi) + mm(Xim, Mr)], axis=1
     )
 
 

@@ -2,8 +2,8 @@
 
 This is the hot kernel of communication-avoiding Lanczos: one invocation
 produces the whole s-step Krylov block so that (in the distributed setting)
-only one halo exchange is paid per s SpMVs, and (on a single chip) XLA can
-keep the vector resident and fuse the shift updates into the SpMV.
+only one halo exchange is paid per s SpMVs, and (on a single device) XLA
+fuses the shift updates into the SpMV.
 
 Reference behavior being reproduced:
 * monomial basis — sequential SpMV loop (matrix_powers_monomial.m:6-12);
@@ -131,86 +131,9 @@ def matrix_powers_from_B(A: Operator, q: jax.Array, B: np.ndarray) -> jax.Array:
     return _newton_scan(A, q, s, diag, sub)
 
 
-def _pallas_eligible(A: Operator, q: jax.Array) -> bool:
-    """The Pallas DIA kernel serves float32 DIA operators on TPU with an
-    aligned tile (ops.pallas_spmv); everything else uses the XLA scan."""
-    from ca_lanczos_tpu.ops.spmv import DiaMatrix
-
-    if not isinstance(A, DiaMatrix) or q.dtype != jnp.float32:
-        return False
-    # x64 processes are served too: the kernels trace under
-    # ops._mosaic.x64_trace_off (Mosaic's convert-element-type rule
-    # recurses on 64-bit literals; tracing with x64 off avoids them),
-    # so the mixed-precision drivers (f64 Gram math) keep this path.
-    try:
-        if jax.default_backend() == "cpu":
-            return False
-    except Exception:  # pragma: no cover
-        return False
-    from ca_lanczos_tpu.ops.pallas_spmv import pick_tile
-
-    return pick_tile(q.shape[0]) > 0
-
-
 def matrix_powers(A: Operator, q: jax.Array, s: int, Bk: Optional[np.ndarray], basis: Basis) -> jax.Array:
-    """Driver-facing dispatcher (reference: ca_lanczos.m:110-118).
-
-    On TPU, float32 DIA operators with aligned sizes route to the Pallas
-    matrix-powers kernel (bit-identical, ~7x faster); all other
-    operator/dtype/backend combinations use the fused XLA scan.
-    """
-    if _pallas_eligible(A, q):
-        from ca_lanczos_tpu.ops.pallas_spmv import matrix_powers_dia_fused
-
-        if basis == Basis.MONOMIAL:
-            return matrix_powers_dia_fused(A, q, s)
-        elif basis == Basis.NEWTON:
-            B = np.asarray(Bk)
-            diag = np.diagonal(B)[:s].copy()
-            sub = np.zeros(s)
-            if s > 1:
-                sub[1:] = np.diagonal(B, 1)[: s - 1]
-            if not np.iscomplexobj(diag):
-                return matrix_powers_dia_fused(A, q, s, diag, sub)
-            # complex shifts fall through to the XLA path
-
-    from ca_lanczos_tpu.ops.pallas_ilv import IlvDiaMatrix
-
-    if isinstance(A, IlvDiaMatrix) and not jnp.iscomplexobj(q):
-        # Interleaved-layout carrier (P A P^T): the fastest DIA powers
-        # kernel (659 vs 472 Gnnz/s, BENCHMARKS.md).  q and the returned
-        # block live in the interleaved space; Ritz vectors decode once.
-        if basis == Basis.MONOMIAL:
-            return A.powers(q, s)
-        elif basis == Basis.NEWTON:
-            B = np.asarray(Bk)
-            diag = np.diagonal(B)[:s].copy()
-            sub = np.zeros(s)
-            if s > 1:
-                sub[1:] = np.diagonal(B, 1)[: s - 1]
-            if not np.iscomplexobj(diag):
-                return A.powers(q, s, diag, sub)
-            # complex shifts fall through (matvec raises a clear error)
-
-    from ca_lanczos_tpu.ops.pell import PellMatrix
-
-    if isinstance(A, PellMatrix) and not jnp.iscomplexobj(q):
-        # General sparsity routes to the PELL gather kernel (~275x the
-        # XLA gather lowering on TPU); interpret mode covers CPU runs.
-        from ca_lanczos_tpu.ops.pell import matrix_powers_pell
-
-        interpret = jax.default_backend() != "tpu"
-        if basis == Basis.MONOMIAL:
-            return matrix_powers_pell(A, q, s, interpret=interpret)
-        elif basis == Basis.NEWTON:
-            B = np.asarray(Bk)
-            diag = np.diagonal(B)[:s].copy()
-            sub = np.zeros(s)
-            if s > 1:
-                sub[1:] = np.diagonal(B, 1)[: s - 1]
-            if not np.iscomplexobj(diag):
-                return matrix_powers_pell(A, q, s, diag, sub, interpret=interpret)
-
+    """Driver-facing dispatcher (reference: ca_lanczos.m:110-118): every
+    operator, dtype and basis runs the fused XLA scan."""
     if basis == Basis.MONOMIAL:
         return matrix_powers_monomial(A, q, s)
     elif basis == Basis.NEWTON:

@@ -1,7 +1,7 @@
 """Block orthogonalization: project / normalize / project_and_normalize.
 
 This is the L1 "BLAS-3 QR layer" of the reference (project.m,
-normalize.m, projectAndNormalize.m), restructured for TPU:
+normalize.m, projectAndNormalize.m), restructured for an accelerator:
 
 * The heavy ops — block Gram products ``Q^H X`` and the tall-skinny QR —
   are jitted device GEMMs/QRs.
@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ca_lanczos_tpu.config import OrthParams, QrMethod
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.ops.qr import cholqr2, cholqr2_mp, tsqr, tsqr_mp
 
 DEFAULT_ORTH_PARAMS = OrthParams()
@@ -52,8 +53,8 @@ def _qr(X: jax.Array, params: OrthParams):
 def _proj_block(Q: jax.Array, X: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """One CGS block step: R = Q^H X; X <- X - Q R."""
     with jax.named_scope("block_cgs"):
-        R = Q.conj().T @ X
-        return X - Q @ R, R
+        R = mm(Q.conj().T, X)
+        return X - mm(Q, R), R
 
 
 @jax.jit
@@ -63,8 +64,8 @@ def _proj_block_mp(Q: jax.Array, X: jax.Array) -> Tuple[jax.Array, jax.Array]:
     with jax.named_scope("block_cgs_mp"):
         Qw = Q.astype(jnp.float64)
         Xw = X.astype(jnp.float64)
-        R = Qw.conj().T @ Xw
-        return (Xw - Qw @ R).astype(X.dtype), R
+        R = mm(Qw.conj().T, Xw)
+        return (Xw - mm(Qw, R)).astype(X.dtype), R
 
 
 @jax.jit
@@ -174,7 +175,7 @@ def normalize(
 
     # Randomize the null space (normalize.m:28-31,38-51).
     R_np = np.diag(S) @ Wh  # R = S * W'
-    Q = Q @ jnp.asarray(U, dtype=Q.dtype)
+    Q = mm(Q, jnp.asarray(U, dtype=Q.dtype))
     n = Q.shape[0]
     n_null = m - rank
     if key is None:

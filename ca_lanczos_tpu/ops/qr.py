@@ -3,9 +3,9 @@
 * ``tsqr`` — thin QR with the sign convention diag(R) >= 0
   (reference: tsqr.m:7-12).  Single-device version; the distributed
   TSQR (local QR + gathered R-stack reduction) lives in
-  ``ca_lanczos_tpu.parallel``.  Numerically the most robust normalizer
-  but XLA's Householder QR of tall-skinny operands is extremely slow on
-  TPU — use CholQR2 there (config.QrMethod).
+  ``ca_lanczos_tpu.parallel``.  Numerically the most robust normalizer;
+  Householder QR is a sequence of panel updates, so CholQR2 (one Gram
+  matmul per pass) is the throughput choice (config.QrMethod).
 * ``cholqr`` — Cholesky QR (reference: cholqr.m:3-9).  One Gram matmul +
   replicated small Cholesky + triangular solve; the cheapest
   communication pattern on a mesh and the fastest single-chip path when
@@ -22,6 +22,8 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
+
+from ca_lanczos_tpu.ops.precision import mm
 
 
 def _sign_fix(Q: jax.Array, R: jax.Array) -> Tuple[jax.Array, jax.Array]:
@@ -59,7 +61,7 @@ def _chol_safe(G: jax.Array) -> jax.Array:
 @jax.jit
 def cholqr(X: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """Cholesky QR: G = X^H X, R = chol(G) (upper), Q = X R^{-1}."""
-    G = X.conj().T @ X
+    G = mm(X.conj().T, X)
     L = _chol_safe(G)  # lower
     R = L.conj().T
     # Q = X R^{-1}  <=>  R^T Q^T = X^T (no conjugation: (QR)^T = R^T Q^T)
@@ -71,15 +73,15 @@ def cholqr(X: jax.Array) -> Tuple[jax.Array, jax.Array]:
 def cholqr2(X: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """CholQR2: two safe Cholesky-QR passes.
 
-    Not in the reference; the high-throughput TPU orthogonalizer (Gram
-    matmuls ride the MXU, no Householder sequential dependency).  Valid
+    Not in the reference; the high-throughput orthogonalizer (Gram
+    matmuls, no Householder sequential dependency).  Valid
     to machine orthogonality for cond(X) < ~eps^{-1/2}; beyond that the
     escalating shifts keep the result finite and the drivers' rank
     checks / conditional reorthogonalization take over.
     """
     Q1, R1 = cholqr(X)
     Q2, R2 = cholqr(Q1)
-    return Q2, R2 @ R1
+    return Q2, mm(R2, R1)
 
 
 @jax.jit
@@ -118,7 +120,7 @@ def gram_f64(X: jax.Array, Y: jax.Array) -> jax.Array:
     chunk only."""
     ck = _mp_chunk_shape(X.shape[0])
     if ck is None:
-        return X.astype(jnp.float64).conj().T @ Y.astype(jnp.float64)
+        return mm(X.astype(jnp.float64).conj().T, Y.astype(jnp.float64))
     c, L = ck
     Xr = X.reshape(c, L, X.shape[1])
     Yr = Y.reshape(c, L, Y.shape[1])
@@ -126,7 +128,7 @@ def gram_f64(X: jax.Array, Y: jax.Array) -> jax.Array:
 
     def body(acc, xy):
         xc, yc = xy
-        return acc + xc.astype(jnp.float64).conj().T @ yc.astype(jnp.float64), None
+        return acc + mm(xc.astype(jnp.float64).conj().T, yc.astype(jnp.float64)), None
 
     G0 = jnp.zeros((X.shape[1], Y.shape[1]), jnp.float64)
     G, _ = lax.scan(body, G0, (Xr, Yr))
@@ -139,7 +141,7 @@ def sub_proj_f64(X: jax.Array, Q: jax.Array, R: jax.Array) -> jax.Array:
     ck = _mp_chunk_shape(X.shape[0])
     if ck is None:
         return (
-            X.astype(jnp.float64) - Q.astype(jnp.float64) @ R
+            X.astype(jnp.float64) - mm(Q.astype(jnp.float64), R)
         ).astype(X.dtype)
     c, L = ck
     Xr = X.reshape(c, L, X.shape[1])
@@ -148,7 +150,7 @@ def sub_proj_f64(X: jax.Array, Q: jax.Array, R: jax.Array) -> jax.Array:
 
     def body(_, xq):
         xc, qc = xq
-        out = (xc.astype(jnp.float64) - qc.astype(jnp.float64) @ R).astype(X.dtype)
+        out = (xc.astype(jnp.float64) - mm(qc.astype(jnp.float64), R)).astype(X.dtype)
         return None, out
 
     _, out = lax.scan(body, None, (Xr, Qr))
@@ -185,7 +187,7 @@ def cholqr_mp(X: jax.Array) -> Tuple[jax.Array, jax.Array]:
 
     The f64 Gram is the accuracy lever: G = X^H X in f32 loses ~2^-24
     relative, which is exactly the eigenvalue error floor the f32
-    flagship showed on hardware; promoting the O(n m^2) reduction fixes
+    flagship showed; promoting the O(n m^2) reduction fixes
     it at negligible cost next to the SpMV stream.  Above _MP_CHUNK_ROWS
     the reductions run row-chunked (see gram_f64) so no f64 copy of X is
     ever resident.
@@ -201,4 +203,4 @@ def cholqr2_mp(X: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """Two mixed-precision CholQR passes (see cholqr2)."""
     Q1, R1 = cholqr_mp(X)
     Q2, R2 = cholqr_mp(Q1)
-    return Q2, R2 @ R1
+    return Q2, mm(R2, R1)

@@ -12,16 +12,7 @@ from ca_lanczos_tpu.parallel.mesh import (
 from ca_lanczos_tpu.parallel.dist_orth import psum_rows
 from ca_lanczos_tpu.parallel.distributed import (
     DistDia,
-    dist_ilv_decode,
-    dist_ilv_encode,
-    ilv_pad_state,
-    ilv_padded_powers,
-    ilv_refresh_ghosts,
-    ilv_statics,
-    ilv_unpad_state,
-    ilv_zero_ghosts,
     dist_matrix_powers,
-    dist_matrix_powers_ilv,
     dist_matrix_powers_rows,
     dist_spmv,
 )
@@ -42,7 +33,6 @@ from ca_lanczos_tpu.parallel.auto import dist_solve_auto, route_dist_operator
 from ca_lanczos_tpu.parallel.driver import dist_ca_lanczos, dist_lanczos, DistCaLanczosResult
 from ca_lanczos_tpu.parallel.dist_bsr import DistBsr, dist_bsr_matrix_powers
 from ca_lanczos_tpu.parallel.dist_ell import DistEll, dist_ell_matrix_powers
-from ca_lanczos_tpu.parallel.dist_pell import DistPell, dist_pell_matrix_powers
 from ca_lanczos_tpu.parallel.dist_irl import dist_impl_restarted_ca_lanczos
 from ca_lanczos_tpu.parallel.dist_sstep import dist_sstep_lanczos
 from ca_lanczos_tpu.parallel.restarted import dist_restarted_ca_lanczos
@@ -60,16 +50,7 @@ __all__ = [
     "HOST",
     "CHIP",
     "DistDia",
-    "dist_ilv_decode",
-    "dist_ilv_encode",
-    "ilv_pad_state",
-    "ilv_padded_powers",
-    "ilv_refresh_ghosts",
-    "ilv_statics",
-    "ilv_unpad_state",
-    "ilv_zero_ghosts",
     "dist_matrix_powers",
-    "dist_matrix_powers_ilv",
     "dist_matrix_powers_rows",
     "dist_spmv",
     "local_tsqr",
@@ -89,9 +70,7 @@ __all__ = [
     "DistBsr",
     "DistEll",
     "dist_ell_matrix_powers",
-    "DistPell",
     "dist_bsr_matrix_powers",
-    "dist_pell_matrix_powers",
     "dist_impl_restarted_ca_lanczos",
     "dist_sstep_lanczos",
     "dist_restarted_ca_lanczos",

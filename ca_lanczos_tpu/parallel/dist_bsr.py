@@ -29,6 +29,7 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 from jax.tree_util import register_dataclass
 
+from ca_lanczos_tpu.ops.precision import einsum
 from ca_lanczos_tpu.ops.bsr import BsrMatrix
 from ca_lanczos_tpu.parallel.distributed import RowStateMixin, _halo_exchange
 from ca_lanczos_tpu.parallel.mesh import ROWS, RowAxes, row_axes, row_spec
@@ -147,14 +148,14 @@ def _bsr_powers_local(
     """One halo exchange + s local block-matvec recurrence steps.
 
     The local step is a batched (bm x bm) x (bm,) tile contraction —
-    dense MXU work per structural tile instead of the ELL path's scalar
+    one gather per structural tile instead of the ELL path's per-entry
     gathers (ops/bsr.py module doc)."""
     xp = _halo_exchange(x_local, halo_b * bm, n_shards, False, axes)
     mb = xp.shape[0] // bm
 
     def matvec(v):
         xb = v.reshape(mb, bm)[cols]  # (mb, kb, bm)
-        return jnp.einsum("ikab,ikb->ia", vals, xb).reshape(mb * bm)
+        return einsum("ikab,ikb->ia", vals, xb).reshape(mb * bm)
 
     def step(carry, coeffs):
         v_km1, v_k = carry

@@ -86,25 +86,13 @@ class DistEll(RowStateMixin):
             s_max=s_max,
         )
 
-    def shard_vector(self, x, mesh: Mesh) -> jax.Array:
-        x = np.asarray(x)
-        n_pad = self.n_shards * self.n_local
-        xp = np.zeros((n_pad,) + x.shape[1:], x.dtype)
-        xp[: self.n] = x
-        return jax.device_put(jnp.asarray(xp), NamedSharding(mesh, row_spec(mesh)))
-
 
 def ell_shard_planes(A: EllMatrix, P_: int, s_max: int, periodic: bool = False):
     """Host-side partition of an ELL operator into per-shard padded
     windows: returns (vals (P, m, k), cols (P, m, k) window-local,
-    halo, n) as numpy — shared by DistEll (device_put as-is) and
-    DistPell (re-encoded per shard) without any device round-trip."""
-    hp = getattr(A, "host_planes", None)  # set by EllMatrix.from_scipy
-    if hp is not None:
-        vals, cols = np.asarray(hp[0]), np.asarray(hp[1])
-    else:
-        vals = np.asarray(A.vals)
-        cols = np.asarray(A.cols)
+    halo, n) as numpy."""
+    vals = np.asarray(A.vals)
+    cols = np.asarray(A.cols)
     n, kk = vals.shape
     # Effective bandwidth over structural nonzeros.
     rows = np.arange(n)[:, None]

@@ -22,6 +22,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 from ca_lanczos_tpu.config import Basis
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.ops.spmv import normest
 from ca_lanczos_tpu.parallel.mesh import ROWS, row_spec
 from ca_lanczos_tpu.parallel.restarted import _dist_reorth
@@ -41,10 +42,9 @@ def _verify_ritz(Adist, V, Y, d, order, k, mesh, dtype, tol,
                  slack: float = 10.0) -> bool:
     """True residuals ||A x - theta x|| of the wanted Ritz pairs, checked
     against ``slack * tol`` (tol is already ||A||-scaled).  State-domain
-    vectors are ghost-zero by construction so norms match natural order;
-    the SpMV rides the operator's own engine (dist_spmv_ilv on ilv)."""
+    vectors are zero-padded beyond n, so norms match natural order."""
     for i in order:
-        x = V[:, :k] @ jnp.asarray(Y[:, i], dtype)
+        x = mm(V[:, :k], jnp.asarray(Y[:, i], dtype))
         nx = float(jnp.linalg.norm(x))
         if nx == 0.0:
             return False
@@ -67,17 +67,13 @@ def dist_impl_restarted_ca_lanczos(
     tol: float = 1.0e-6,
     max_restarts: int = 40,
     qr_method: str = "tsqr",
-    dist_format: str = "auto",
     mixed_precision: bool = False,
 ) -> IRLResult:
     """Distributed IRL (impl_restarted_ca_lanczos.m intended design): CA
     inner iteration with a full-history cleanup pass per block (the IRL
     compression makes the retained columns dense mixtures, so local-only
     orthogonalization is insufficient — mirrors the single-chip driver's
-    orth=FULL).  A may be a DiaMatrix or an EllMatrix
-    (``dist_format="pell"`` selects the PELL Pallas local step;
-    ``dist_format="ilv"`` runs banded f32 operators on the padded-domain
-    interleaved engine — state stays in that domain end to end)."""
+    orth=FULL).  A may be a DiaMatrix or an EllMatrix."""
     basis = Basis(basis)
     norm_A = normest(A)
     tol = tol * norm_A
@@ -97,19 +93,15 @@ def dist_impl_restarted_ca_lanczos(
         Bk = build_basis_matrix(A, jnp.asarray(q_host), s, basis)
     diag_np, sub_np = newton_coeffs(Bk)
 
-    Adist = partition_operator(A, mesh, s_max=s, dist_format=dist_format)
-    # State domain: natural rows, or the padded interleaved domain on the
-    # ilv engine (dist_format="ilv") — ghost-zeroed, so the compression
-    # GEMMs and reorth below are layout-invariant.
-    n, n_state = A.n, Adist.n_shards * Adist.state_len
-    q = Adist.shard_entry(q_host, mesh)
-    # IRL state dtype follows the ENTRY vector, not the kernel: the
+    Adist = partition_operator(A, mesh, s_max=s)
+    n_state = Adist.n_shards * Adist.n_local
+    q = Adist.shard_vector(q_host, mesh)
+    # IRL state dtype follows the ENTRY vector, not the operator: the
     # implicit restart compresses and re-extends the same basis for many
     # cycles, and f32 state loses enough orthogonality for the
     # beta*|Y[k-1]| estimate to lock spurious Ritz values (round-3 red
     # test: fabricated 167.64 reported converged).  An f64 caller gets
-    # f64 compression/orthogonalization on every engine; the f32-only
-    # ilv powers kernel casts at its seam (parallel.step.body_ilv).
+    # f64 compression/orthogonalization on every operator.
     want = jax.dtypes.canonicalize_dtype(np.asarray(r).dtype)
     if np.issubdtype(want, np.floating) and q.dtype != want:
         q = q.astype(want)
@@ -185,9 +177,9 @@ def dist_impl_restarted_ca_lanczos(
         # scalars are cast to the state dtype explicitly (an f64 scalar
         # would silently promote f32 state and the .set below would
         # emit JAX's unsafe-cast FutureWarning).
-        Vk_new = V[:, :m] @ jnp.asarray(Qh[:, :k], dtype)
+        Vk_new = mm(V[:, :m], jnp.asarray(Qh[:, :k], dtype))
         r_new = (
-            V[:, :m] @ jnp.asarray(Qh[:, k] * H[k, k - 1], dtype)
+            mm(V[:, :m], jnp.asarray(Qh[:, k] * H[k, k - 1], dtype))
             + r_vec * jnp.asarray(Qh[m - 1, k - 1], dtype)
         )
         beta_k = float(jnp.linalg.norm(r_new))
@@ -223,7 +215,7 @@ def dist_impl_restarted_ca_lanczos(
     order = np.argsort(d)[::-1][:n_wanted]
     eigs = d[order]
     rnorms = (float(T[k, k - 1]) * np.abs(Y[k - 1, :]))[order]
-    Q_conv = Adist.gather_columns(V[:, :k] @ jnp.asarray(Y[:, order], dtype))
+    Q_conv = Adist.gather_columns(mm(V[:, :k], jnp.asarray(Y[:, order], dtype)))
     return IRLResult(
         eigs=eigs, Q_conv=Q_conv, n_restarts=n_restarts,
         conv_rnorms=rnorms, converged=converged,

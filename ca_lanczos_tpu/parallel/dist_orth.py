@@ -1,14 +1,14 @@
 """Distributed block orthogonalization: TSQR, CholQR, block CGS.
 
-TPU-native replacements for the reference's tall-skinny QR layer
+Mesh-native replacements for the reference's tall-skinny QR layer
 (tsqr.m:7-12, cholqr.m:3-9, project.m:32-39): the n-dimension is
 row-sharded, all reductions are single XLA collectives:
 
 * ``dist_tsqr`` — local thin QR per shard, ``all_gather`` of the P small
   R factors, replicated QR of the stacked (P*m, m) matrix, local Q
   correction.  One collective of P*m*m elements; the classic
-  communication-optimal TSQR tree collapsed to one level (P is small on a
-  pod slice, and XLA's all-gather is already a tree/ring on ICI).
+  communication-optimal TSQR tree collapsed to one level (P is small,
+  and the all-gather is already a tree/ring in the collective library).
 * ``dist_cholqr`` — Gram matrix via ``psum``, replicated Cholesky, local
   triangular solve.  2x fewer flops than TSQR, half the stability (used
   exactly like cholqr.m: an alternative normalizer).
@@ -17,7 +17,7 @@ row-sharded, all reductions are single XLA collectives:
   passes (BCGS2) so the step stays branch-free under jit; the
   data-dependent single/double-pass choice of the host path
   (projectAndNormalize.m:43-57) is deliberately replaced by the
-  always-double-pass variant, which is what a fixed-shape TPU step wants
+  always-double-pass variant, which is what a fixed-shape jitted step wants
   and is at least as accurate.
 
 All functions run INSIDE ``shard_map`` (they operate on local shards and
@@ -28,12 +28,13 @@ jitted step with ``jax.shard_map`` — see ``parallel.step``.
 every function takes the mesh's row-axis handle via ``axes`` and the
 reductions become explicitly two-level —
 
-* ``psum_rows`` reduces over the chip axis first (ICI all-reduce within
-  each host) and then over the host axis (DCN all-reduce of the
+* ``psum_rows`` reduces over the chip axis first (intra-host all-reduce)
+  and then over the host axis (inter-host all-reduce of the
   already-reduced partials), the classic hierarchical all-reduce tree;
 * ``local_tsqr`` builds a two-level R-factor tree: chip-level stacked-R
-  QR (C*m x m, ICI) then host-level (H*m x m, DCN) — the DCN reduction
-  volume drops from P*m^2 to H*m^2 and the replicated small QR shrinks.
+  QR (C*m x m, intra-host) then host-level (H*m x m, inter-host) — the
+  inter-host reduction volume drops from P*m^2 to H*m^2 and the
+  replicated small QR shrinks.
 
 The flat ``('rows',)`` path is unchanged.
 """
@@ -46,6 +47,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.parallel.mesh import ROWS, RowAxes
 
 
@@ -56,9 +58,9 @@ def _hier(axes: RowAxes) -> bool:
 
 def psum_rows(x: jax.Array, axes: RowAxes = ROWS) -> jax.Array:
     """All-reduce over the mesh row axes.  Hierarchical meshes reduce the
-    innermost (chip/ICI) axis first, then the host/DCN axis — each DCN
-    message carries the host's already-reduced partial, so inter-host
-    traffic is one partial per host instead of one per chip."""
+    innermost (chip, intra-host) axis first, then the host axis — each
+    inter-host message carries the host's already-reduced partial, so
+    inter-host traffic is one partial per host instead of one per chip."""
     if _hier(axes):
         for a in reversed(axes):
             x = lax.psum(x, a)
@@ -87,22 +89,22 @@ def local_tsqr(X_local: jax.Array, axes: RowAxes = ROWS) -> Tuple[jax.Array, jax
     tsqr.m:9-11).  Call inside shard_map.
 
     Flat mesh: one R-reduction level (P*m x m).  Hierarchical mesh: the
-    communication-optimal two-level tree — chip level rides ICI, host
-    level moves only H small R factors over DCN.
+    communication-optimal two-level tree — chip level stays inside a
+    host, host level moves only H small R factors between hosts.
     """
     Q1, R1 = jnp.linalg.qr(X_local, mode="reduced")  # (n_local, m), (m, m)
     if _hier(axes):
         host_ax, chip_ax = axes[0], axes[-1]
-        Q2_mine, R2 = _stack_qr(R1, chip_ax)   # ICI level
-        Q3_mine, R = _stack_qr(R2, host_ax)    # DCN level
-        Q_corr = Q2_mine @ Q3_mine
+        Q2_mine, R2 = _stack_qr(R1, chip_ax)   # intra-host level
+        Q3_mine, R = _stack_qr(R2, host_ax)    # inter-host level
+        Q_corr = mm(Q2_mine, Q3_mine)
     else:
         Q_corr, R = _stack_qr(R1, axes)
     # Sign fix: diag(R) >= 0.
     sgn = jnp.where(jnp.diag(R) < 0, -1.0, 1.0).astype(R.dtype)
     R = sgn[:, None] * R
     Q_corr = Q_corr * sgn[None, :]
-    return Q1 @ Q_corr, R
+    return mm(Q1, Q_corr), R
 
 
 def local_cholqr(
@@ -122,13 +124,13 @@ def local_cholqr(
 
     if mp and X_local.dtype != jnp.float64:
         Xw = X_local.astype(jnp.float64)
-        G = psum_rows(Xw.T @ Xw, axes)
+        G = psum_rows(mm(Xw.T, Xw), axes)
         R = _chol_safe(G).conj().T
         Q = lax.linalg.triangular_solve(
             R, Xw, left_side=False, lower=False
         ).astype(X_local.dtype)
         return Q, R
-    G = psum_rows(X_local.T @ X_local, axes)
+    G = psum_rows(mm(X_local.T, X_local), axes)
     R = _chol_safe(G).conj().T
     Q = lax.linalg.triangular_solve(R, X_local, left_side=False, lower=False)
     return Q, R
@@ -137,12 +139,12 @@ def local_cholqr(
 def local_cholqr2(
     X_local: jax.Array, mp: bool = False, axes: RowAxes = ROWS
 ) -> Tuple[jax.Array, jax.Array]:
-    """Two distributed CholQR passes — the TPU-production normalizer
-    (XLA's Householder QR of tall-skinny shards is minutes-slow on TPU;
-    see config.QrMethod).  Valid for cond(X) < ~eps^{-1/2}."""
+    """Two distributed CholQR passes — the throughput normalizer (one
+    psum'd Gram per pass instead of a Householder panel sequence; see
+    config.QrMethod).  Valid for cond(X) < ~eps^{-1/2}."""
     Q1, R1 = local_cholqr(X_local, mp, axes)
     Q2, R2 = local_cholqr(Q1, mp, axes)
-    return Q2, R2 @ R1
+    return Q2, mm(R2, R1)
 
 
 def local_tsqr_mp(X_local: jax.Array, axes: RowAxes = ROWS) -> Tuple[jax.Array, jax.Array]:
@@ -209,12 +211,12 @@ def local_qr_safe(
     k = jax.random.fold_in(key, idx)
     rnd = jax.random.normal(k, X_local.shape, X_local.dtype)
     # keep the refresh path in storage dtype (mp leaves R f64)
-    Qrot = Q @ U.astype(Q.dtype)  # leading `rank` cols span range(X)
+    Qrot = mm(Q, U.astype(Q.dtype))  # leading `rank` cols span range(X)
     Qgood = jnp.where(bad[None, :], 0.0, Qrot)
     Y = jnp.where(bad[None, :], rnd, Qrot)
     for _ in range(2):  # masked CGS: only the replaced columns move
         G = local_gram(Qgood, Y, axes=axes)
-        Y = jnp.where(bad[None, :], Y - Qgood @ G, Y)
+        Y = jnp.where(bad[None, :], Y - mm(Qgood, G), Y)
     Q2, _ = local_qr(Y, qr_method, axes=axes)
     # Left-to-right QR keeps the (already orthonormal) surviving columns
     # and completes the replaced ones against them.  On breakdown the
@@ -235,11 +237,11 @@ def local_gram(
     float64 (returns float64)."""
     if mp and X_local.dtype != jnp.float64:
         return psum_rows(
-            Q_local.astype(jnp.float64).conj().T
-            @ X_local.astype(jnp.float64),
+            mm(Q_local.astype(jnp.float64).conj().T,
+               X_local.astype(jnp.float64)),
             axes,
         )
-    return psum_rows(Q_local.conj().T @ X_local, axes)
+    return psum_rows(mm(Q_local.conj().T, X_local), axes)
 
 
 def local_project(
@@ -260,10 +262,10 @@ def local_project(
         Rp = local_gram(Q_local, Y, mp, axes)
         if mp:
             Y = (
-                Y.astype(jnp.float64) - Q_local.astype(jnp.float64) @ Rp
+                Y.astype(jnp.float64) - mm(Q_local.astype(jnp.float64), Rp)
             ).astype(X_local.dtype)
         else:
-            Y = Y - Q_local @ Rp
+            Y = Y - mm(Q_local, Rp)
         R = R + Rp
     return Y, R
 

@@ -25,6 +25,7 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec
 
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.parallel.dist_ell import DistEll
 from ca_lanczos_tpu.parallel.distributed import DistDia, _halo_exchange
 from ca_lanczos_tpu.parallel.mesh import ROWS, row_axes, row_spec
@@ -128,8 +129,8 @@ def dist_propagate_split(
         wr = jnp.asarray(np.real(w))
         wi = jnp.asarray(np.imag(w))
         Qb = Q[:, :, : j]
-        re = Qb[:, 0, :] @ wr - Qb[:, 1, :] @ wi
-        im = Qb[:, 0, :] @ wi + Qb[:, 1, :] @ wr
+        re = mm(Qb[:, 0, :], wr) - mm(Qb[:, 1, :], wi)
+        im = mm(Qb[:, 0, :], wi) + mm(Qb[:, 1, :], wr)
         psi = jnp.stack([re, im], axis=1)
 
     host = np.asarray(psi)[:n]

@@ -6,7 +6,7 @@ workload shape ("s-step CA-Lanczos on a large matrix across hosts,
 compute/collective overlap").  Per outer iteration the communication is:
 
 * ONE halo exchange inside the distributed matrix-powers kernel
-  (ppermute on ICI);
+  (one ppermute pair);
 * ONE fused all-reduce for the 2s dot products and the small GEMM
   reductions — expressed as plain jnp ops over NamedSharding arrays, so
   GSPMD partitions the elementwise work and inserts the psum.
@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.ops.spmv import DiaMatrix
 from ca_lanczos_tpu.parallel.distributed import DistDia, dist_matrix_powers, dist_spmv
 from ca_lanczos_tpu.solvers.sstep import SstepResult, _assemble_T, _sstep_core
@@ -55,10 +56,10 @@ class _DistOps:
         return _dots_2s_sharded(P)
 
     def next_p1(self, Vk, Vkm1, Es, Gs):
-        return dist_spmv(self.Adist, Vk[:, -1], self.mesh) - Vkm1 @ Es - Vk @ Gs
+        return dist_spmv(self.Adist, Vk[:, -1], self.mesh) - mm(Vkm1, Es) - mm(Vk, Gs)
 
     def basis_update(self, P, Vk, t):
-        return P - Vk @ t
+        return P - mm(Vk, t)
 
 
 def dist_sstep_lanczos(

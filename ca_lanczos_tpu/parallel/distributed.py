@@ -9,8 +9,8 @@ boundary exchange per s SpMVs:
 * each device holds its own matrix rows PLUS the rows of the s-deep ghost
   region (precomputed at partition time — the "matrix halo");
 * one ``ppermute`` pair per block pulls the s*w-deep vector halo from the
-  ring neighbors (w = operator bandwidth), riding ICI;
-* s local banded SpMVs then run entirely on-chip: step k pollutes only the
+  ring neighbors (w = operator bandwidth);
+* s local banded SpMVs then run entirely on-device: step k pollutes only the
   outermost k*w entries of the padded vector, so the owned center rows
   remain exact for all s steps.
 
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -33,59 +33,6 @@ from jax.tree_util import register_dataclass
 
 from ca_lanczos_tpu.ops.spmv import DiaMatrix
 from ca_lanczos_tpu.parallel.mesh import ROWS, RowAxes, row_axes, row_spec
-
-# Interleaved-center ghost depth, in q-units per interleave plane: 128
-# q-elements = one lane tile, so every per-plane ghost/center slice in
-# the distributed interleaved layout is lane-tile aligned (no XLA
-# relayout).  Natural-row ghost depth is J * ILV_HALO_Q = 1024 per side.
-ILV_HALO_Q = 128
-
-
-def _ilv_plan(offsets, ndiags: int, n_local: int, s_max: int, dtype):
-    """Interleaved-engine admission + tiling plan for one shard.
-
-    Returns (tq, ilv_m_pad, reason): tq == 0 means the shard cannot run
-    the padded-domain interleaved engine and ``reason`` says why (the
-    route note dist_solve_auto surfaces).  Shared by DistDia.from_dia
-    (which builds the layout when tq > 0) and dist_ilv_admissible (the
-    shape/dtype-only probe the router uses).
-    """
-    from ca_lanczos_tpu.ops.pallas_ilv import J as _J, WQ as _WQ, pick_tq
-
-    if np.dtype(dtype) != np.float32:
-        return 0, 0, f"dtype {np.dtype(dtype).name} != float32 (kernel is f32-only)"
-    HJ = _J * ILV_HALO_Q
-    w = max((abs(o) for o in offsets), default=0)
-    if s_max * w > HJ:
-        return 0, 0, f"s_max*bandwidth {s_max * w} exceeds the {HJ}-row exchanged edge"
-    carry = max(((abs(o) + _J - 1) // _J for o in offsets), default=0)
-    if s_max * carry > _WQ:
-        return 0, 0, f"s_max*carry {s_max * carry} exceeds the kernel q-halo {_WQ}"
-    if HJ > n_local or n_local % HJ:
-        return 0, 0, f"shard size {n_local} not a multiple of {HJ} rows"
-    m = n_local + 2 * HJ
-    # Pad so the LARGEST kernel tile divides: with minimal 8192
-    # alignment a padded shard typically leaves nq % 16384 != 0,
-    # pick_tq degrades to tq=1024, and the fixed 2*WQ=2048 halo
-    # re-fetch per tile triples the data traffic (measured 16 vs
-    # 313 Gnnz/s at P=1).  Up to J*16384-1 pad rows (3% at a 4M
-    # shard) buys the 16384 sweet spot.
-    imp = tq = 0
-    for align in (_J * 16384, 8192):
-        cand = max(2 * align, -(-m // align) * align)
-        if align == _J * 16384 and cand > 2 * m:
-            # The 16384-tile alignment is a ~3% pad on large shards but
-            # can blow a small shard up 256x — and every n-sized driver
-            # state (histories, locked bases, IRL V) allocates at the
-            # padded length.  Bound it to <=2x; small shards take the
-            # 8192 candidate instead (ADVICE r3).
-            continue
-        t = pick_tq(cand, ndiags)
-        if t > tq or (t == tq and cand < imp):
-            imp, tq = cand, t
-    if not tq:
-        return 0, 0, f"no interleave tile divides the padded shard ({m} rows, {ndiags} diagonals)"
-    return tq, imp, ""
 
 
 def check_s_bound(A, s: int) -> None:
@@ -103,56 +50,34 @@ def check_s_bound(A, s: int) -> None:
         )
 
 
-def dist_ilv_admissible(A, n_devices: int, s_max: int):
-    """(ok, reason) shape/dtype-only probe: can this DiaMatrix run the
-    padded-domain interleaved engine on an ``n_devices`` mesh?  No data
-    is touched (relay-safe); the router uses this to pick
-    dist_format='ilv' vs the roll engine and to surface WHY a problem
-    landed on the slower path (round-3 VERDICT weak #7)."""
-    ndiags, n = A.data.shape
-    n_local = -(-n // n_devices)
-    tq, _, reason = _ilv_plan(A.offsets, ndiags, n_local, s_max, A.data.dtype)
-    return bool(tq), reason
-
-
 class RowStateMixin:
     """Driver-state API shared by the distributed operator classes.
 
     Distributed drivers keep their n-sized state (Krylov blocks, locked
-    basis, histories) in the operator's STATE DOMAIN and only enter/exit
-    at solve boundaries: plain row-sharded natural order here
-    (DistEll/DistPell and natural-layout DistDia), or the padded
-    interleaved domain when DistDia runs the ilv engine (DistDia
-    overrides).  Because state vectors are ghost-zero by construction in
-    either domain, the whole orthogonalization stack (psum Gram, CGS,
-    TSQR/CholQR) is layout-invariant, so drivers written against this
-    API run on every engine unchanged.
+    basis, histories) row-sharded in natural order, zero-padded to
+    P*n_local rows, and only enter/exit at solve boundaries through this
+    API, so the same driver runs on every distributed operator class.
     """
 
-    ilv_engine: bool = False
-
-    @property
-    def state_len(self) -> int:
-        """Per-shard length of driver state vectors."""
-        return self.n_local
-
     def state_zeros(self, cols: int, mesh: Mesh, dtype=None) -> jax.Array:
-        """Row-sharded zeros in the driver's state domain ((P*state_len,
-        cols), or (P*state_len,) with cols=0) — valid (ghost-zero) state
-        in every domain by construction."""
+        """Row-sharded zeros in the driver's state layout ((P*n_local,
+        cols), or (P*n_local,) with cols=0)."""
         dtype = self.dtype if dtype is None else dtype
-        shape = (self.n_shards * self.state_len,) + ((cols,) if cols else ())
+        shape = (self.n_shards * self.n_local,) + ((cols,) if cols else ())
         return jax.device_put(
             jnp.zeros(shape, dtype), NamedSharding(mesh, row_spec(mesh))
         )
 
-    def shard_entry(self, x, mesh: Mesh) -> jax.Array:
-        """Entry into the driver state domain from a host (n,)/(n, k)
-        natural-order array."""
-        return self.shard_vector(x, mesh)
+    def shard_vector(self, x, mesh: Mesh) -> jax.Array:
+        """Entry into the driver state layout: zero-pad a host (n,) or
+        (n, k) natural-order array to P*n_local rows and row-shard it."""
+        x = np.asarray(x)
+        xp = np.zeros((self.n_shards * self.n_local,) + x.shape[1:], x.dtype)
+        xp[: self.n] = x
+        return jax.device_put(jnp.asarray(xp), NamedSharding(mesh, row_spec(mesh)))
 
     def gather_columns(self, Q) -> np.ndarray:
-        """Exit from the driver state domain to natural host order:
+        """Exit from the driver state layout to natural host order:
         (state, k) or (state,) -> (n, k) / (n,) trimmed."""
         return np.asarray(Q)[: self.n]
 
@@ -167,32 +92,13 @@ class DistDia(RowStateMixin):
         outside [0, n).  Sharded over the leading mesh axis.
     offsets: static diagonal offsets (see ops.spmv.DiaMatrix).
     halo: ghost depth in rows; must be >= s_max * max|offset|.
-
-    When the shard shape admits the fused Pallas s-step kernel
-    (ops.pallas_spmv._dia_powers_fused), ``dflat`` holds the per-shard
-    flat-padded matrix layout (P, ndiags*(m_pad + 2*fused_w)) built once
-    at partition time, so the distributed matrix powers run at the fused
-    kernel's HBM rate instead of the XLA shifted-slice rate
-    (reference hot loop: matrix_powers_monomial.m:6-12).
     """
 
     data: jax.Array
     offsets: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
     halo: int = dataclasses.field(metadata=dict(static=True))
     n: int = dataclasses.field(metadata=dict(static=True))
-    dflat: Optional[jax.Array] = None
-    fused_w: int = dataclasses.field(default=0, metadata=dict(static=True))
-    m_pad: int = dataclasses.field(default=0, metadata=dict(static=True))
-    fused_tile: int = dataclasses.field(default=0, metadata=dict(static=True))
-    fused_interpret: bool = dataclasses.field(default=False, metadata=dict(static=True))
     periodic: bool = dataclasses.field(default=False, metadata=dict(static=True))
-    # Interleaved-layout local step (ops.pallas_ilv): per-shard tile-major
-    # planes over the shard's padded local domain.  The shard body encodes
-    # the exchanged vector once per block (one transpose), runs the ilv
-    # kernel, and the decode fuses into the center-slice output copy.
-    ilv_dflat: Optional[jax.Array] = None
-    ilv_tq: int = dataclasses.field(default=0, metadata=dict(static=True))
-    ilv_m_pad: int = dataclasses.field(default=0, metadata=dict(static=True))
 
     @property
     def n_shards(self) -> int:
@@ -220,51 +126,12 @@ class DistDia(RowStateMixin):
         w = self.bandwidth
         return self.halo // w if w else 10**9
 
-    @property
-    def ilv_engine(self) -> bool:
-        """True when drivers run this operator on the padded-domain
-        interleaved engine (the predicate parallel.step._local_powers_fn
-        dispatches on): driver state then lives in the padded interleaved
-        domain (ilv_m_pad per shard, ghost-zeroed) rather than the
-        natural row layout."""
-        return self.ilv_dflat is not None and self.dflat is None
-
-    @property
-    def state_len(self) -> int:
-        """Per-shard length of driver state vectors: ilv_m_pad in the
-        padded interleaved domain, n_local in the natural layout."""
-        return self.ilv_m_pad if self.ilv_engine else self.n_local
-
-    def shard_entry(self, x, mesh: Mesh) -> jax.Array:
-        """Entry into the driver state domain: ilv_shard_vector (cast to
-        the kernel's f32) on the interleaved engine, shard_vector
-        otherwise.  A driver needing wider state than the kernel dtype
-        (the dist IRL's repeated basis compressions) upcasts AFTER entry;
-        the f32-only ilv kernel is cast back at its seam
-        (_local_powers_fn's body_ilv / dist_spmv_ilv)."""
-        return (
-            self.ilv_shard_vector(np.asarray(x, self.data.dtype), mesh)
-            if self.ilv_engine
-            else self.shard_vector(x, mesh)
-        )
-
-    def gather_columns(self, Q) -> np.ndarray:
-        """Exit from the driver state domain to natural host order:
-        (state, k) or (state,) -> (n, k) / (n,) trimmed, decoding the
-        interleave when the operator runs the ilv engine."""
-        if self.ilv_engine:
-            return self.ilv_gather_columns(Q)
-        return np.asarray(Q)[: self.n]
-
     @staticmethod
     def from_dia(
         A: DiaMatrix,
         mesh: Mesh,
         s_max: int,
-        fused: Optional[bool] = None,
-        interpret: bool = False,
         periodic: bool = False,
-        ilv: bool = False,
     ) -> "DistDia":
         """Partition a DIA operator over ``mesh`` with an s_max-deep halo.
 
@@ -272,24 +139,11 @@ class DistDia(RowStateMixin):
         zero (harmless: they contribute nothing and their Krylov entries
         stay zero when the start vector is zero-padded likewise).
 
-        ``fused`` selects the fused Pallas kernel for the local s-step
-        computation (None = auto: on when every mesh device is a TPU and
-        the shard shape admits an aligned tile).  ``interpret`` runs the
-        kernel in Pallas interpret mode (CPU testing).
-
         ``periodic=True`` interprets the DIA data as circulant-banded
         (``A[i, (i + off) mod n] = data[d, i]``, the runLanczos wrap) and
         fills the matrix ghost rows from the wrapped end; requires n to
         divide evenly over the shards so the ring stays aligned.
-
-        ``ilv=True`` additionally precomputes the per-shard interleaved
-        tile-major layout (ops.pallas_ilv) so the shard-local s-step
-        computation rides the fastest banded kernel (659 vs 470 Gnnz/s
-        single-chip); silently skipped when the shard's padded domain
-        admits no interleave tiling or the s_max halo bound fails.
         """
-        from ca_lanczos_tpu.ops.pallas_spmv import fused_tile
-
         P_ = mesh.devices.size
         data = np.asarray(A.data)
         ndiags, n = data.shape
@@ -318,164 +172,9 @@ class DistDia(RowStateMixin):
         sharded = jax.device_put(
             jnp.asarray(shards), NamedSharding(mesh, row_spec(mesh))
         )
-        if fused is None:
-            # x64 processes are fine: the kernels trace under
-            # ops._mosaic.x64_trace_off, which keeps every literal i32.
-            fused = not interpret and all(
-                d.platform == "tpu" for d in mesh.devices.flat
-            )
-        dflat = None
-        W = m_pad = ftile = 0
-        if fused:
-            m = n_local + 2 * halo
-            # Pad to the kernel's sweet-spot tile (65536) when the shard is
-            # big enough so pick_tile lands on it; 1024-unit otherwise.
-            unit = 65536 if m >= 65536 else 1024
-            m_pad = ((m + unit - 1) // unit) * unit
-            W = max(1024, ((s_max * w + 1023) // 1024) * 1024)
-            ftile = fused_tile(m_pad, ndiags, W, s_max, data.dtype)
-            if ftile == 0:
-                fused = False
-                W = m_pad = 0
-            else:
-                # Per-shard flat layout: each diagonal row padded to m_pad
-                # then W on both sides, concatenated (see dia_flat_padded).
-                fshards = np.zeros((P_, ndiags * (m_pad + 2 * W)), data.dtype)
-                for p in range(P_):
-                    padded = np.zeros((ndiags, m_pad + 2 * W), data.dtype)
-                    padded[:, W : W + m] = shards[p]
-                    fshards[p] = padded.reshape(-1)
-                dflat = jax.device_put(
-                    jnp.asarray(fshards), NamedSharding(mesh, row_spec(mesh))
-                )
-        ilv_dflat = None
-        ilv_tq = ilv_m_pad = 0
-        if ilv:
-            from ca_lanczos_tpu.ops.pallas_ilv import (
-                J as _J, WQ as _WQ, ilv_data_tiled,
-            )
-
-            # INTERLEAVED-CENTER layout: the shard-local domain is
-            # [start - HJ, start + n_local + HJ) with a FIXED ghost depth
-            # HJ = J*ILV_HALO_Q = 1024 natural rows per side.  With
-            # HJ % J == 0 and n_local % (J*ILV_HALO_Q) == 0, each
-            # interleave plane of the padded domain decomposes into
-            # lane-tile-aligned slices [ghost(128q) | center(nq) |
-            # ghost(128q) | zeros], so the distributed step can stay in
-            # the interleaved layout ACROSS blocks — only the 1024-row
-            # edges are exchanged, and no 8-way interleave transpose
-            # (the measured 24 Gnnz/s XLA cliff, BENCHMARKS.md) ever
-            # touches the n-sized state.  Consumed by
-            # dist_matrix_powers_ilv; the natural-layout _powers_local
-            # paths ignore these planes.
-            HJ = _J * ILV_HALO_Q
-            m = n_local + 2 * HJ
-            # Pad so the LARGEST kernel tile divides: with minimal 8192
-            # alignment a padded shard typically leaves nq % 16384 != 0,
-            # pick_tq degrades to tq=1024, and the fixed 2*WQ=2048 halo
-            # re-fetch per tile triples the data traffic (measured 16 vs
-            # 313 Gnnz/s at P=1).  Up to J*16384-1 pad rows (3% at a 4M
-            # shard) buys the 16384 sweet spot.
-            tq, imp, _reason = _ilv_plan(
-                A.offsets, ndiags, n_local, s_max, data.dtype
-            )
-            if tq:
-                # Shard data over the ILV domain (HJ-deep ghosts).
-                g2 = np.zeros((ndiags, n_pad + 2 * HJ), data.dtype)
-                g2[:, HJ : HJ + n] = data
-                if periodic:
-                    g2[:, :HJ] = data[:, n - HJ :]
-                    g2[:, HJ + n :] = data[:, :HJ]
-                ishards = np.zeros(
-                    (P_, (imp // (_J * tq)) * ndiags * _J * (tq + 2 * _WQ)),
-                    data.dtype,
-                )
-                for p in range(P_):
-                    padded = np.zeros((ndiags, imp), data.dtype)
-                    padded[:, :m] = g2[:, p * n_local : p * n_local + m]
-                    ishards[p] = ilv_data_tiled(
-                        DiaMatrix(data=padded, offsets=A.offsets), tq
-                    )
-                ilv_dflat = jax.device_put(
-                    jnp.asarray(ishards), NamedSharding(mesh, row_spec(mesh))
-                )
-                ilv_tq, ilv_m_pad = tq, imp
         return DistDia(
-            data=sharded,
-            offsets=A.offsets,
-            halo=halo,
-            n=n,
-            dflat=dflat,
-            fused_w=W,
-            m_pad=m_pad,
-            fused_tile=ftile,
-            fused_interpret=interpret,
-            periodic=periodic,
-            ilv_dflat=ilv_dflat,
-            ilv_tq=ilv_tq,
-            ilv_m_pad=ilv_m_pad,
+            data=sharded, offsets=A.offsets, halo=halo, n=n, periodic=periodic,
         )
-
-    def shard_vector(self, x, mesh: Mesh) -> jax.Array:
-        """Zero-pad a global (n,) vector to (P*n_local,) and row-shard it."""
-        x = np.asarray(x)
-        n_pad = self.n_shards * self.n_local
-        xp = np.zeros((n_pad,) + x.shape[1:], x.dtype)
-        xp[: self.n] = x
-        return jax.device_put(jnp.asarray(xp), NamedSharding(mesh, row_spec(mesh)))
-
-    def ilv_shard_vector(self, x, mesh: Mesh) -> jax.Array:
-        """Entry into the padded interleaved domain: global (n,) or
-        (n, k) -> (P*ilv_m_pad[, k]) row-sharded padded-domain state with
-        zero ghosts (the dist-ilv driver representation; see
-        ilv_padded_powers)."""
-        if self.ilv_dflat is None:
-            raise ValueError("operator built without ilv=True")
-        from ca_lanczos_tpu.ops.pallas_ilv import ilv_encode
-
-        x = np.asarray(x)
-        one = x.ndim == 1
-        X = x[:, None] if one else x
-        nl = self.n_local
-        xp = np.zeros((self.n_shards * nl, X.shape[1]), x.dtype)
-        xp[: self.n] = X
-        cols = np.stack(
-            [
-                ilv_pad_state(
-                    self,
-                    np.concatenate(
-                        [ilv_encode(np.ascontiguousarray(xp[p * nl : (p + 1) * nl, j]))
-                         for p in range(self.n_shards)]
-                    ),
-                )
-                for j in range(X.shape[1])
-            ],
-            axis=1,
-        )
-        out = cols[:, 0] if one else cols
-        return jax.device_put(
-            jnp.asarray(out), NamedSharding(mesh, row_spec(mesh))
-        )
-
-    def ilv_gather_columns(self, Q) -> np.ndarray:
-        """Exit from the padded interleaved domain: (P*ilv_m_pad, k)
-        padded-domain columns -> (n, k) natural-order host array."""
-        from ca_lanczos_tpu.ops.pallas_ilv import ilv_decode
-
-        Q = np.asarray(Q)
-        one = Q.ndim == 1
-        cols = Q.T[None] if one else Q.T  # (k, P*imp) rows
-        il = ilv_unpad_state(self, cols)  # (k, P*n_local) interleaved
-        nl = self.n_local
-        nat = np.concatenate(
-            [
-                np.stack([ilv_decode(row[p * nl : (p + 1) * nl])
-                          for row in il])
-                for p in range(self.n_shards)
-            ],
-            axis=1,
-        )[:, : self.n]
-        return nat[0] if one else nat.T
 
 
 def _dia_matvec_local(offsets: Tuple[int, ...], data: jax.Array, x: jax.Array) -> jax.Array:
@@ -494,8 +193,8 @@ def _dia_matvec_local(offsets: Tuple[int, ...], data: jax.Array, x: jax.Array) -
 def _ring_perms(n_shards: int, periodic: bool):
     """Forward/backward neighbor pairs of the linear shard ring.  On a
     hierarchical mesh the linear index is host-major, so consecutive
-    pairs stay on ICI and exactly the ``(h*C + C-1, (h+1)*C)`` boundary
-    pairs cross DCN."""
+    pairs stay inside a host and exactly the ``(h*C + C-1, (h+1)*C)``
+    boundary pairs cross hosts."""
     if periodic:
         fwd = [(i, (i + 1) % n_shards) for i in range(n_shards)]
         bwd = [((i + 1) % n_shards, i) for i in range(n_shards)]
@@ -517,10 +216,10 @@ def _halo_exchange(
     runLanczos.m:15-18) distribute like any banded operator.
 
     ``axes``: the mesh row-axis handle.  On a hierarchical (host, chip)
-    mesh the single ppermute runs over the linearized axes — XLA's
-    CollectivePermute keeps the intra-host pairs on ICI and only the
-    2*(H-1) host-boundary pairs (2H when periodic) touch DCN, the
-    minimum for a ring exchange."""
+    mesh the single ppermute runs over the linearized axes — the
+    intra-host pairs stay inside a host and only the 2*(H-1)
+    host-boundary pairs (2H when periodic) cross hosts, the minimum for
+    a ring exchange."""
     fwd, bwd = _ring_perms(n_shards, periodic)
     with jax.named_scope("halo_exchange"):
         left = lax.ppermute(x_local[-halo:], axes, perm=fwd)
@@ -537,11 +236,6 @@ def _powers_local(
     halo: int,
     n_shards: int,
     s: int,
-    dflat_local: Optional[jax.Array] = None,
-    fused_w: int = 0,
-    m_pad: int = 0,
-    fused_tile: int = 0,
-    fused_interpret: bool = False,
     transposed: bool = False,
     include_q: bool = True,
     periodic: bool = False,
@@ -551,43 +245,12 @@ def _powers_local(
 
     Implements V[:,k+1] = A V[:,k] - diag[k] V[:,k] - sub[k] V[:,k-1] on
     the padded vector; returns the owned center (n_local, s+1), or
-    (s+1, n_local) with ``transposed=True`` — the kernel's natural
+    (s+1, n_local) with ``transposed=True`` — the scan's natural
     layout, which avoids materializing a transpose at a shard_map
     boundary (callers transpose lazily outside).
-
-    With ``dflat_local`` (the shard's flat-padded layout from
-    DistDia.from_dia) the s local steps run through the fused Pallas
-    kernel — one matrix HBM read per s steps — instead of the XLA
-    shifted-slice scan.  Tile halos pollute inward by bandwidth per step,
-    but fused_w >= s*w keeps the owned center exact, identical to the
-    single-chip kernel's guarantee.
     """
     xp = _halo_exchange(x_local, halo, n_shards, periodic, axes)
     n_local = x_local.shape[0]
-
-    if dflat_local is not None and s * max(
-        (abs(o) for o in offsets), default=0
-    ) <= fused_w:
-        from ca_lanczos_tpu.ops.pallas_spmv import _dia_powers_fused
-
-        m = xp.shape[0]
-        xpp = jnp.pad(xp, (0, m_pad - m))
-        coefs = jnp.stack([diag[:s], sub[:s]], axis=1).astype(xp.dtype)
-        ws, _ = _dia_powers_fused(
-            dflat_local,
-            xpp,
-            coefs,
-            offsets,
-            s,
-            tile=fused_tile,
-            interpret=fused_interpret,
-            W=fused_w,
-        )  # (s, m_pad)
-        center = ws[:, halo : halo + n_local]
-        if not include_q:  # caller re-attaches q outside the shard_map
-            return center if transposed else center.T
-        V = jnp.concatenate([x_local[None, :], center], axis=0)
-        return V if transposed else V.T
 
     def step(carry, coeffs):
         v_km1, v_k = carry
@@ -604,22 +267,11 @@ def _powers_local(
     return V if transposed else V.T  # (n_local, s+1) by default
 
 
-def dia_powers_operands(A: DistDia):
-    """Shard_map operand arrays + the _powers_local kwargs the extra
-    blocks bind to (shared by the dist wrappers here and parallel.step)."""
-    ops_, names = [A.data], []
-    if A.dflat is not None:
-        ops_.append(A.dflat)
-        names.append("dflat_local")
-    return tuple(ops_), tuple(names)
-
-
 def dia_powers_statics(A: DistDia, s: int, axes: RowAxes = ROWS) -> dict:
     """Static _powers_local kwargs for an operator (shared threading)."""
     return dict(
         offsets=A.offsets, halo=A.halo, n_shards=A.n_shards, s=s,
-        fused_w=A.fused_w, m_pad=A.m_pad, fused_tile=A.fused_tile,
-        fused_interpret=A.fused_interpret, periodic=A.periodic, axes=axes,
+        periodic=A.periodic, axes=axes,
     )
 
 
@@ -637,33 +289,15 @@ def dist_matrix_powers(
     coefficients ((0, 0) vectors give the monomial basis).
 
     PERFORMANCE: this convenience layout (leading q column + (n, s+1)
-    transpose) costs ~2x at the shard_map boundary when the consumer
-    only chains powers.  Chained/kernel-speed callers should use
+    transpose) adds copies when the consumer only chains powers.
+    Chained callers should use
     ``dist_matrix_powers_rows`` (the layout the drivers use internally);
     this wrapper is the reference-shaped API (matrix_powers.m:1-13)."""
-    check_s_bound(A, s)
-    operands, names = dia_powers_operands(A)
-    inner = partial(_powers_local, **dia_powers_statics(A, s, row_axes(mesh)))
-
-    def body(*args):
-        *blocks, x_local, dg, sb = args
-        extra = {nm: blk[0] for nm, blk in zip(names, blocks[1:])}
-        return inner(
-            blocks[0][0], x_local, dg, sb,
-            transposed=True, include_q=False, **extra,
-        )
-
-    # The body emits the bare (s, n_local) recurrence block — the kernel's
-    # natural layout; prepending q and transposing happen OUTSIDE the
-    # shard_map boundary where XLA fuses them into consumers instead of
-    # materializing extra (n, s+1) copies.
-    W = jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=tuple([row_spec(mesh)] * (len(operands) + 1))
-        + (PartitionSpec(), PartitionSpec()),
-        out_specs=row_spec(mesh, lead_none=1),
-    )(*operands, x, diag, sub)
+    # The rows-native block (s, n_pad) is the scan's natural layout;
+    # prepending q and transposing happen OUTSIDE the shard_map boundary
+    # where XLA fuses them into consumers instead of materializing extra
+    # (n, s+1) copies.
+    W = dist_matrix_powers_rows(A, x, s, diag, sub, mesh)
     return jnp.concatenate([x[None, :], W], axis=0).T
 
 
@@ -683,324 +317,23 @@ def dist_matrix_powers_rows(
     shard_map boundary materializes only the kernel's natural (s, n)
     layout, so a chained consumer (power iteration, bench, scaling sweep)
     reads W[s-1] as a cheap row slice instead of paying the q-concat +
-    transpose copies the (n, s+1) API forces (~2x at P=1 on hardware).
+    transpose copies the (n, s+1) API forces.
     """
     check_s_bound(A, s)
-    operands, names = dia_powers_operands(A)
     inner = partial(
         _powers_local, transposed=True, include_q=False,
         **dia_powers_statics(A, s, row_axes(mesh)),
     )
 
-    def body(*args):
-        *blocks, x_local, dg, sb = args
-        extra = {nm: blk[0] for nm, blk in zip(names, blocks[1:])}
-        return inner(blocks[0][0], x_local, dg, sb, **extra)
+    def body(data_block, x_local, dg, sb):
+        return inner(data_block[0], x_local, dg, sb)
 
     return jax.shard_map(
         body,
         mesh=mesh,
-        in_specs=tuple([row_spec(mesh)] * (len(operands) + 1))
-        + (PartitionSpec(), PartitionSpec()),
+        in_specs=(row_spec(mesh), row_spec(mesh), PartitionSpec(), PartitionSpec()),
         out_specs=row_spec(mesh, lead_none=1),
-    )(*operands, x, diag, sub)
-
-
-def _ilv_edges(x_il: jax.Array, nq: int):
-    """Per-plane 128-q edge blocks of a shard-local interleaved vector:
-    (J, ILV_HALO_Q) stacks of the first / last J*ILV_HALO_Q natural rows."""
-    from ca_lanczos_tpu.ops.pallas_ilv import J as _J
-
-    first = jnp.stack(
-        [lax.dynamic_slice(x_il, (r * nq,), (ILV_HALO_Q,)) for r in range(_J)]
-    )
-    last = jnp.stack(
-        [lax.dynamic_slice(x_il, (r * nq + nq - ILV_HALO_Q,), (ILV_HALO_Q,))
-         for r in range(_J)]
-    )
-    return first, last
-
-
-def _ilv_powers_local(
-    ilv_dflat_local: jax.Array,
-    x_il: jax.Array,  # (n_local,) shard-local INTERLEAVED
-    diag: jax.Array,
-    sub: jax.Array,
-    offsets: Tuple[int, ...],
-    n_shards: int,
-    s: int,
-    ilv_tq: int,
-    ilv_m_pad: int,
-    periodic: bool = False,
-    fused_interpret: bool = False,
-    axes: RowAxes = ROWS,
-) -> jax.Array:
-    """Interleaved-center shard-local s-step: edge exchange + ilv kernel,
-    everything staying in the interleaved layout (see DistDia.from_dia's
-    ilv block for the layout contract).  Returns W_il (s, n_local) —
-    row j is step j's shard segment, interleaved with nq = n_local/J.
-
-    The only cross-layout traffic is the two (J, 128) edge blocks per
-    exchange; the n-sized state never passes through an 8-way interleave
-    transpose (the measured XLA relayout cliff, BENCHMARKS.md)."""
-    from ca_lanczos_tpu.ops.pallas_ilv import J as _J, dia_powers_ilv
-
-    n_local = x_il.shape[0]
-    nq = n_local // _J
-    nqp = ilv_m_pad // _J
-    first, last = _ilv_edges(x_il, nq)
-    fwd, bwd = _ring_perms(n_shards, periodic)
-    with jax.named_scope("ilv_edge_exchange"):
-        from_left = lax.ppermute(last, axes, perm=fwd)
-        from_right = lax.ppermute(first, axes, perm=bwd)
-
-    xp = jnp.zeros((ilv_m_pad,), x_il.dtype)
-    for r in range(_J):
-        xp = lax.dynamic_update_slice(xp, from_left[r], (r * nqp,))
-        xp = lax.dynamic_update_slice(
-            xp, lax.dynamic_slice(x_il, (r * nq,), (nq,)),
-            (r * nqp + ILV_HALO_Q,),
-        )
-        xp = lax.dynamic_update_slice(
-            xp, from_right[r], (r * nqp + ILV_HALO_Q + nq,)
-        )
-    coefs = jnp.stack([diag[:s], sub[:s]], axis=1).astype(x_il.dtype)
-    V2, _ = dia_powers_ilv(
-        ilv_dflat_local, xp, coefs, offsets, s, ilv_tq, ilv_m_pad,
-        interpret=fused_interpret, with_coefs=True,
-    )  # (s, ilv_m_pad) interleaved rows over the padded domain
-    return jnp.concatenate(
-        [lax.dynamic_slice(V2, (0, r * nqp + ILV_HALO_Q), (s, nq))
-         for r in range(_J)],
-        axis=1,
-    )
-
-
-@partial(jax.jit, static_argnames=("s", "mesh"))
-def dist_matrix_powers_ilv(
-    A: DistDia,
-    x_il: jax.Array,  # (n_pad,) row-sharded, per-shard interleaved
-    s: int,
-    diag: jax.Array,
-    sub: jax.Array,
-    mesh: Mesh,
-) -> jax.Array:
-    """Distributed matrix powers in the per-shard INTERLEAVED layout:
-    x_il (n_pad,) row-sharded (each shard's segment ilv-encoded) ->
-    W_il (s, n_pad), row j sharded like x_il.
-
-    The kernel-speed distributed powers path: the shard state stays
-    interleaved across blocks (Gram/axpy/norm consumers are
-    permutation-invariant per shard, mirroring the single-chip
-    IlvDiaMatrix contract), only (J, 128) natural-row edges ride the
-    ring.  Requires DistDia.from_dia(..., ilv=True); encode shard
-    vectors once with ``dist_ilv_encode`` / ``DistDia.shard_vector_ilv``
-    and decode results once at solve end."""
-    if A.ilv_dflat is None:
-        raise ValueError(
-            "operator has no interleaved layout: build with "
-            "DistDia.from_dia(..., ilv=True) (and check its skip "
-            "conditions: f32, n_local % 1024 == 0, s_max bounds)"
-        )
-
-    def body(iflat_block, x_block, dg, sb):
-        return _ilv_powers_local(
-            iflat_block[0], x_block, dg, sb,
-            offsets=A.offsets, n_shards=A.n_shards, s=s,
-            ilv_tq=A.ilv_tq, ilv_m_pad=A.ilv_m_pad,
-            periodic=A.periodic, fused_interpret=A.fused_interpret,
-            axes=row_axes(mesh),
-        )
-
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(row_spec(mesh), row_spec(mesh),
-                  PartitionSpec(), PartitionSpec()),
-        out_specs=row_spec(mesh, lead_none=1),
-    )(A.ilv_dflat, x_il, diag, sub)
-
-
-def ilv_statics(A: DistDia, s: int, axes: RowAxes = ROWS) -> dict:
-    """Static kwargs for the padded-domain ilv body helpers below."""
-    return dict(
-        offsets=A.offsets, n_shards=A.n_shards, s=s, n_local=A.n_local,
-        ilv_tq=A.ilv_tq, ilv_m_pad=A.ilv_m_pad, periodic=A.periodic,
-        fused_interpret=A.fused_interpret, axes=axes,
-    )
-
-
-def ilv_refresh_ghosts(xp: jax.Array, *, n_local, ilv_m_pad, n_shards,
-                       periodic=False, axes: RowAxes = ROWS, **_) -> jax.Array:
-    """Refresh the ghost slices of a PADDED-DOMAIN interleaved shard
-    vector from ring neighbors (shard_map-body helper).
-
-    The padded-domain state is the kernel-speed dist-ilv representation:
-    each shard holds the full (ilv_m_pad,) interleaved domain
-    [ghost(128q) | center(nq) | ghost(128q) | zeros] per plane.  Chained
-    consumers keep state in this domain — the kernel's `last` output
-    feeds the next block directly after this ghost refresh, with no
-    center re-assembly (measured 631 vs 159 Gnnz/s at P=1 for the
-    re-assembling per-call wrapper; exp/dist_ilv_bench.py)."""
-    from ca_lanczos_tpu.ops.pallas_ilv import J as _J
-
-    nqp = ilv_m_pad // _J
-    nq = n_local // _J
-    P = n_shards
-    first = jnp.stack([
-        lax.dynamic_slice(xp, (r * nqp + ILV_HALO_Q,), (ILV_HALO_Q,))
-        for r in range(_J)])
-    last = jnp.stack([
-        lax.dynamic_slice(xp, (r * nqp + nq,), (ILV_HALO_Q,))
-        for r in range(_J)])
-    fwd, bwd = _ring_perms(P, periodic)
-    if P > 1 or periodic:
-        fl = lax.ppermute(last, axes, perm=fwd)
-        fr = lax.ppermute(first, axes, perm=bwd)
-    else:
-        fl, fr = jnp.zeros_like(last), jnp.zeros_like(first)
-    for r in range(_J):
-        xp = lax.dynamic_update_slice(xp, fl[r], (r * nqp,))
-        xp = lax.dynamic_update_slice(xp, fr[r], (r * nqp + ILV_HALO_Q + nq,))
-    return xp
-
-
-def ilv_padded_powers(ilv_dflat_local: jax.Array, xp: jax.Array,
-                      diag, sub, *, offsets, s, ilv_tq, ilv_m_pad,
-                      fused_interpret=False, **refresh_statics):
-    """Shard_map-body s-step powers on the padded interleaved domain:
-    ghost refresh + ilv kernel.  Returns (V2 (s, ilv_m_pad), last) —
-    both padded-domain; ``last`` chains into the next call, V2 rows feed
-    Gram/axpy consumers after :func:`ilv_zero_ghosts`.  Bind statics
-    with :func:`ilv_statics`."""
-    from ca_lanczos_tpu.ops.pallas_ilv import dia_powers_ilv
-
-    xp = ilv_refresh_ghosts(xp, ilv_m_pad=ilv_m_pad, **refresh_statics)
-    coefs = jnp.stack([diag[:s], sub[:s]], axis=1).astype(xp.dtype)
-    return dia_powers_ilv(
-        ilv_dflat_local, xp, coefs, offsets, s, ilv_tq, ilv_m_pad,
-        interpret=fused_interpret, with_coefs=True,
-    )
-
-
-def ilv_zero_ghosts(xp: jax.Array, *, n_local, ilv_m_pad, **_) -> jax.Array:
-    """Zero the ghost slices of a padded-domain vector so reductions
-    (Gram/norms) see each global row exactly once; the zero tail beyond
-    the domain contributes nothing already."""
-    from ca_lanczos_tpu.ops.pallas_ilv import J as _J
-
-    nqp = ilv_m_pad // _J
-    nq = n_local // _J
-    z = jnp.zeros((ILV_HALO_Q,), xp.dtype)
-    for r in range(_J):
-        xp = lax.dynamic_update_slice(xp, z, (r * nqp,))
-        xp = lax.dynamic_update_slice(xp, z, (r * nqp + ILV_HALO_Q + nq,))
-    return xp
-
-
-def ilv_pad_state(A: DistDia, x_il: np.ndarray) -> np.ndarray:
-    """Host-side entry into the padded domain: per-shard interleaved
-    segments (dist_ilv_encode layout, (P*n_local,)) -> (P*ilv_m_pad,)
-    padded-domain state with zero ghosts (refreshed on first use)."""
-    from ca_lanczos_tpu.ops.pallas_ilv import J as _J
-
-    nqp = A.ilv_m_pad // _J
-    nq = A.n_local // _J
-    P = A.n_shards
-    x_il = np.asarray(x_il)
-    out = np.zeros((P, A.ilv_m_pad), x_il.dtype)
-    for p in range(P):
-        seg = x_il[p * A.n_local : (p + 1) * A.n_local]
-        for r in range(_J):
-            out[p, r * nqp + ILV_HALO_Q : r * nqp + ILV_HALO_Q + nq] = (
-                seg[r * nq : (r + 1) * nq]
-            )
-    return out.reshape(-1)
-
-
-def ilv_unpad_state(A: DistDia, xp: np.ndarray) -> np.ndarray:
-    """Host-side inverse of :func:`ilv_pad_state`: padded-domain rows
-    ((P*ilv_m_pad,) or (k, P*ilv_m_pad)) -> per-shard interleaved
-    (dist_ilv_encode layout)."""
-    from ca_lanczos_tpu.ops.pallas_ilv import J as _J
-
-    nqp = A.ilv_m_pad // _J
-    nq = A.n_local // _J
-    P = A.n_shards
-    xp = np.asarray(xp)
-    one = xp.ndim == 1
-    X = xp[None] if one else xp
-    out = np.empty((X.shape[0], P * A.n_local), X.dtype)
-    for p in range(P):
-        for r in range(_J):
-            src = p * A.ilv_m_pad + r * nqp + ILV_HALO_Q
-            dst = p * A.n_local + r * nq
-            out[:, dst : dst + nq] = X[:, src : src + nq]
-    return out[0] if one else out
-
-
-def dist_ilv_encode(A: DistDia, x, mesh: Mesh) -> jax.Array:
-    """Zero-pad a global (n,) vector, ilv-encode each shard segment on
-    host, and row-shard the result (the one-time entry transpose)."""
-    from ca_lanczos_tpu.ops.pallas_ilv import ilv_encode
-
-    x = np.asarray(x)
-    nl = A.n_local
-    xp = np.zeros((A.n_shards * nl,), x.dtype)
-    xp[: A.n] = x
-    enc = np.concatenate(
-        [ilv_encode(xp[p * nl : (p + 1) * nl]) for p in range(A.n_shards)]
-    )
-    return jax.device_put(
-        jnp.asarray(enc), NamedSharding(mesh, row_spec(mesh))
-    )
-
-
-def dist_ilv_decode(A: DistDia, w_il: np.ndarray) -> np.ndarray:
-    """Host-side inverse of :func:`dist_ilv_encode` for a (n_pad,) row or
-    each row of a (k, n_pad) block; returns natural order, trimmed to n."""
-    from ca_lanczos_tpu.ops.pallas_ilv import ilv_decode
-
-    w_il = np.asarray(w_il)
-    one = w_il.ndim == 1
-    W = w_il[None] if one else w_il
-    nl = A.n_local
-    out = np.concatenate(
-        [
-            np.stack([ilv_decode(row[p * nl : (p + 1) * nl]) for row in W])
-            for p in range(A.n_shards)
-        ],
-        axis=1,
-    )[:, : A.n]
-    return out[0] if one else out
-
-
-@partial(jax.jit, static_argnames=("mesh",))
-def dist_spmv_ilv(A: DistDia, xp: jax.Array, mesh: Mesh) -> jax.Array:
-    """Single distributed SpMV in the padded interleaved domain:
-    xp (P*ilv_m_pad,) ghost-zeroed padded-domain state -> A @ xp in the
-    same domain, output ghosts re-zeroed.  The s=1 use of
-    ilv_padded_powers — what the true-residual verification of the
-    ilv-engine dist drivers rides (the residual-check seam of
-    restarted_ca_lanczos.m:156-166)."""
-    if A.ilv_dflat is None:
-        raise ValueError("operator built without ilv=True")
-    st = ilv_statics(A, 1, row_axes(mesh))
-
-    def body(iflat_block, x_local):
-        # Kernel seam cast (f32-only kernel, caller-controlled state
-        # dtype) — mirrors parallel.step._local_powers_fn's body_ilv.
-        xk = x_local.astype(iflat_block.dtype)
-        z = jnp.zeros((1,), xk.dtype)
-        V2, _ = ilv_padded_powers(iflat_block[0], xk, z, z, **st)
-        return ilv_zero_ghosts(V2[0], **st).astype(x_local.dtype)
-
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(row_spec(mesh), row_spec(mesh)),
-        out_specs=row_spec(mesh),
-    )(A.ilv_dflat, xp)
+    )(A.data, x, diag, sub)
 
 
 @partial(jax.jit, static_argnames=("mesh",))

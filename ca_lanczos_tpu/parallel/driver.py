@@ -19,10 +19,10 @@ import numpy as np
 from jax.sharding import Mesh
 
 from ca_lanczos_tpu.config import Basis
-from ca_lanczos_tpu.ops.spmv import DiaMatrix, EllMatrix
+from ca_lanczos_tpu.ops.precision import vdot
+from ca_lanczos_tpu.ops.spmv import DiaMatrix
 from ca_lanczos_tpu.solvers._block import block_T, extend_T, first_block_T
 from ca_lanczos_tpu.solvers.ca_lanczos import monomial_basis_matrix
-from ca_lanczos_tpu.parallel.dist_ell import DistEll
 from ca_lanczos_tpu.parallel.distributed import DistDia
 from ca_lanczos_tpu.parallel.step import dist_ca_block, dist_first_block, newton_coeffs
 
@@ -33,10 +33,6 @@ class DistCaLanczosResult:
     Q_blocks: List[jax.Array]  # row-sharded basis blocks
     beta: np.ndarray
     n: int  # true (unpadded) dimension
-    # dist_format="ilv": blocks live in the padded interleaved domain;
-    # .Q decodes through the operator (eigenVALUES need no decode — T is
-    # permutation-invariant).
-    ilv_op: Optional[DistDia] = None
 
     @property
     def Q(self) -> np.ndarray:
@@ -49,8 +45,6 @@ class DistCaLanczosResult:
         for B in self.Q_blocks[1:]:
             cols.append(np.asarray(B[:, 1:]))
         Qfull = np.concatenate(cols, axis=1)
-        if self.ilv_op is not None:
-            return self.ilv_op.ilv_gather_columns(Qfull)[:, : self.T.shape[0]]
         return Qfull[: self.n, : self.T.shape[0]]
 
 
@@ -64,7 +58,6 @@ def dist_ca_lanczos(
     Bk: Optional[np.ndarray] = None,
     qr_method: str = "tsqr",
     orth=None,
-    dist_format: str = "auto",
     mixed_precision: bool = False,
 ) -> DistCaLanczosResult:
     """Row-sharded CA-Lanczos over ``mesh`` with all four orth modes
@@ -82,14 +75,6 @@ def dist_ca_lanczos(
     A may be a DiaMatrix (banded) or EllMatrix (general bounded-bandwidth
     sparsity); for the Newton basis pass a precomputed ``Bk`` (e.g. from
     solvers.ca_lanczos.build_basis_matrix on the host operator).
-
-    ``dist_format="ilv"`` (banded f32) runs the shard-local s-step on
-    the padded-domain interleaved kernel — 632 vs 313 Gnnz/s at P=1
-    (BENCHMARKS.md) — with ALL FOUR orth modes: driver state (blocks,
-    histories, Ritz basis) lives in the ghost-zeroed padded interleaved
-    domain, where Gram/CGS/QR are layout-invariant.  T and eigenvalues
-    match the natural-layout path (per-shard symmetric permutation);
-    .Q decodes the basis on exit.
     """
     from ca_lanczos_tpu.config import Orth
     from ca_lanczos_tpu.ops.spmv import normest
@@ -112,11 +97,9 @@ def dist_ca_lanczos(
 
     from ca_lanczos_tpu.parallel.step import partition_operator
 
-    Adist = partition_operator(A, mesh, s_max=s, dist_format=dist_format)
-    is_ilv = Adist.ilv_engine
+    Adist = partition_operator(A, mesh, s_max=s)
     r = np.asarray(r)
-    n = A.n
-    q = Adist.shard_entry(r / np.linalg.norm(r), mesh)
+    q = Adist.shard_vector(r / np.linalg.norm(r), mesh)
     dtype = q.dtype
     diag = jnp.asarray(diag_np, dtype)
     sub = jnp.asarray(sub_np, dtype)
@@ -124,12 +107,7 @@ def dist_ca_lanczos(
     _EPS = float(np.finfo(np.float64).eps)
     norm_A = normest(A) if orth in (Orth.PERIODIC, Orth.SELECTIVE) else None
     omega = OmegaRecurrence(norm_A) if orth == Orth.PERIODIC else None
-    # Histories live in the operator's STATE DOMAIN (natural rows, or the
-    # padded interleaved domain on the ilv engine — ghost-zero columns,
-    # so every Gram/CGS/QR consumer is layout-invariant).  The natural
-    # path keeps its f64 history dtype; the ilv engine matches the
-    # kernel's f32 so basis columns re-entering powers stay f32.
-    hist_dtype = dtype if is_ilv else np.float64
+    hist_dtype = np.float64
     Qhist = (
         Adist.state_zeros(m + 1, mesh, hist_dtype)
         if orth in (Orth.FULL, Orth.PERIODIC, Orth.SELECTIVE)
@@ -208,7 +186,6 @@ def dist_ca_lanczos(
 
     return DistCaLanczosResult(
         T=T[: s * t, : s * t], Q_blocks=Q_blocks, beta=b, n=A.n,
-        ilv_op=Adist if is_ilv else None,
     )
 
 
@@ -233,7 +210,7 @@ def dist_lanczos(A: DiaMatrix, r, maxiter: int, mesh: Mesh):
         w = dist_spmv(Adist, Q[:, j - 1], mesh)
         if j > 1:
             w = w - jnp.asarray(beta[j - 2], dtype) * Q[:, j - 2]
-        a = float(jnp.vdot(Q[:, j - 1], w))  # GSPMD: local partials + psum
+        a = float(vdot(Q[:, j - 1], w))  # GSPMD: local partials + psum
         w = w - a * Q[:, j - 1]
         b = float(jnp.linalg.norm(w))
         alpha[j - 1], beta[j - 1] = a, b

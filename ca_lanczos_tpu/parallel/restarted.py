@@ -6,7 +6,7 @@ row-sharded: the inner CA blocks run as ONE jitted mesh step each
 AND the locked converged basis + slot-psum TSQR), Ritz locking and
 restart control remain O((st)^2) host math.
 
-TPU-first twist vs the host driver: the locked basis ``Q_conv`` is kept
+Twist vs the host driver: the locked basis ``Q_conv`` is kept
 at a FIXED padded width (2*n_wanted columns — headroom for wrong-end
 deflation locks, zero-filled beyond nconv) so the jitted step compiles
 once and is reused across all restarts — projecting against zero columns
@@ -25,43 +25,31 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec
 
 from ca_lanczos_tpu.config import Basis, LanczosConfig, RestartStrategy
-from ca_lanczos_tpu.ops.spmv import DiaMatrix, normest
-from ca_lanczos_tpu.parallel.dist_ell import DistEll
-from ca_lanczos_tpu.parallel.dist_orth import local_project, local_qr
+from ca_lanczos_tpu.ops.precision import mm
+from ca_lanczos_tpu.ops.spmv import normest
 from ca_lanczos_tpu.parallel.dist_ell import dist_ell_matrix_powers
-from ca_lanczos_tpu.parallel.distributed import DistDia, _powers_local, dist_spmv
-
-
-def _dist_spmv_any(Adist, x, mesh):
-    """One distributed SpMV for DistDia / DistEll / DistPell shards; on
-    the ilv engine x is padded-domain state and so is the result."""
-    if isinstance(Adist, DistDia):
-        if Adist.ilv_engine:
-            from ca_lanczos_tpu.parallel.distributed import dist_spmv_ilv
-
-            return dist_spmv_ilv(Adist, x, mesh)
-        return dist_spmv(Adist, x, mesh)
-    z = jnp.zeros(1, x.dtype)
-    from ca_lanczos_tpu.parallel.dist_bsr import DistBsr, dist_bsr_matrix_powers
-    from ca_lanczos_tpu.parallel.dist_pell import DistPell, dist_pell_matrix_powers
-
-    if isinstance(Adist, DistPell):
-        return dist_pell_matrix_powers(Adist, x, 1, z, z, mesh)[:, 1]
-    if isinstance(Adist, DistBsr):
-        return dist_bsr_matrix_powers(Adist, x, 1, z, z, mesh)[:, 1]
-    return dist_ell_matrix_powers(Adist, x, 1, z, z, mesh)[:, 1]
-from ca_lanczos_tpu.parallel.mesh import ROWS, row_axes, row_spec
-from ca_lanczos_tpu.parallel.step import (
-    _local_powers_fn,
-    _powers_check_vma,
-    newton_coeffs,
-)
+from ca_lanczos_tpu.parallel.dist_orth import local_project, local_qr
+from ca_lanczos_tpu.parallel.distributed import DistDia, dist_spmv
+from ca_lanczos_tpu.parallel.mesh import row_axes, row_spec
+from ca_lanczos_tpu.parallel.step import _local_powers_fn, newton_coeffs
 from ca_lanczos_tpu.solvers._block import block_T, extend_T, first_block_T
 from ca_lanczos_tpu.solvers.ca_lanczos import build_basis_matrix, monomial_basis_matrix
 from ca_lanczos_tpu.solvers.restarted import (
     RestartedResult, _finalize, _lock_converged, _verify_floor,
     _verify_gate, _wanted_converged,
 )
+
+
+def _dist_spmv_any(Adist, x, mesh):
+    """One distributed SpMV for DistDia / DistEll / DistBsr shards."""
+    if isinstance(Adist, DistDia):
+        return dist_spmv(Adist, x, mesh)
+    z = jnp.zeros(1, x.dtype)
+    from ca_lanczos_tpu.parallel.dist_bsr import DistBsr, dist_bsr_matrix_powers
+
+    if isinstance(Adist, DistBsr):
+        return dist_bsr_matrix_powers(Adist, x, 1, z, z, mesh)[:, 1]
+    return dist_ell_matrix_powers(Adist, x, 1, z, z, mesh)[:, 1]
 
 
 # Lockless cycles tolerated before a random restart (stagnation guard).
@@ -74,7 +62,7 @@ def _dist_first_block_locked(
     safe: bool = False, key=None, mp: bool = False,
 ):
     """First CA block of a restart cycle: powers -> TSQR -> lock against
-    Q_conv (restarted_ca_lanczos.m:311-319).  A: DistDia or DistEll.
+    Q_conv (restarted_ca_lanczos.m:311-319).  A: a distributed operator.
 
     ``safe=True`` routes the normalization through local_qr_safe, the
     masked in-jit null-space randomization (normalize.m:28-51), so a
@@ -106,7 +94,6 @@ def _dist_first_block_locked(
         in_specs=tuple([row_spec(mesh)] * (len(operands) + 2))
         + (PartitionSpec(), PartitionSpec(), PartitionSpec()),
         out_specs=(row_spec(mesh), PartitionSpec(), PartitionSpec()),
-        check_vma=_powers_check_vma(A),
     )(*operands, q, Qconv, diag, sub, key)
 
 
@@ -117,7 +104,7 @@ def _dist_ca_block_locked(
 ):
     """CA block k>1 with locking: project the new block against the
     previous s+1 columns AND the padded converged basis
-    (restarted_ca_lanczos.m:324).  A: DistDia or DistEll."""
+    (restarted_ca_lanczos.m:324).  A: a distributed operator."""
     from ca_lanczos_tpu.parallel.dist_orth import local_qr_safe
 
     axes = row_axes(mesh)
@@ -144,7 +131,6 @@ def _dist_ca_block_locked(
         in_specs=tuple([row_spec(mesh)] * (len(operands) + 2))
         + (PartitionSpec(), PartitionSpec(), PartitionSpec()),
         out_specs=(row_spec(mesh), PartitionSpec(), PartitionSpec()),
-        check_vma=_powers_check_vma(A),
     )(*operands, Q_prev, Qconv, diag, sub, key)
 
 
@@ -181,7 +167,7 @@ def _dist_ritz_vector(Q_blocks, w, mesh: Mesh):
     """x = [blocks] @ w on the mesh (row-sharded GEMV)."""
 
     def body(Qb_local, w_rep):
-        return Qb_local @ w_rep
+        return mm(Qb_local, w_rep)
 
     return jax.shard_map(
         body,
@@ -197,7 +183,7 @@ def _deflate_start(q, Qconv):
     basis + renormalize; zero columns are no-ops.  GSPMD handles the
     sharded contraction."""
     for _ in range(2):
-        q = q - Qconv @ (Qconv.T @ q)
+        q = q - mm(Qconv, mm(Qconv.T, q))
     return q / jnp.linalg.norm(q)
 
 
@@ -210,7 +196,6 @@ def dist_restarted_ca_lanczos(
     checkpoint_path=None,
     resume_from=None,
     safe_qr: bool = False,
-    dist_format: str = "auto",
 ) -> RestartedResult:
     """Row-sharded restarted CA-Lanczos (flagship, multi-chip).
 
@@ -231,12 +216,6 @@ def dist_restarted_ca_lanczos(
     from such a file, re-sharding the state over ``mesh``.  safe_qr
     routes block normalizations through the masked in-jit null-space
     randomization (parallel.dist_orth.local_qr_safe).
-
-    ``dist_format="ilv"`` runs the whole restart machine on the padded-
-    domain interleaved engine (632 vs 313 Gnnz/s local step at P=1):
-    state (blocks, locked basis, histories) is ghost-zeroed padded-domain,
-    entered via shard_entry / exited via gather_columns, and the true-
-    residual verification rides dist_spmv_ilv.
     """
     from ca_lanczos_tpu.config import Orth
     from ca_lanczos_tpu.utils.diagnostics import OmegaRecurrence
@@ -258,9 +237,9 @@ def dist_restarted_ca_lanczos(
 
     from ca_lanczos_tpu.parallel.step import partition_operator
 
-    Adist = partition_operator(A, mesh, s_max=s, dist_format=dist_format)
+    Adist = partition_operator(A, mesh, s_max=s)
     n = A.n
-    q = Adist.shard_entry(q_host, mesh)
+    q = Adist.shard_vector(q_host, mesh)
     dtype = q.dtype
     diag = jnp.asarray(diag_np, dtype)
     sub = jnp.asarray(sub_np, dtype)
@@ -270,12 +249,7 @@ def dist_restarted_ca_lanczos(
         raise ValueError(f"max_lanczos={max_lanczos} < s={s}")
     m = s * iters
 
-    # Driver state (locked basis, histories, blocks) lives in the
-    # operator's STATE DOMAIN: natural rows, or the ghost-zeroed padded
-    # interleaved domain on the ilv engine (dist_format="ilv"), where
-    # every Gram/CGS/QR consumer is layout-invariant.  Natural path keeps
-    # the f64 history dtype; ilv matches the kernel's f32.
-    hist_dtype = dtype if Adist.ilv_engine else np.float64
+    hist_dtype = np.float64
     # Fixed-width padded locked basis (see module doc).  2x headroom:
     # Lanczos converges both spectrum ends, and wrong-end pairs are
     # still locked for deflation while only pairs dominating every
@@ -309,8 +283,8 @@ def dist_restarted_ca_lanczos(
         if ck.Q_conv is not None:
             qc = np.zeros((n, config.n_wanted))
             qc[:, : ck.Q_conv.shape[1]] = ck.Q_conv
-            Qconv = Adist.shard_entry(qc, mesh)
-        q = Adist.shard_entry(np.asarray(ck.q), mesh)
+            Qconv = Adist.shard_vector(qc, mesh)
+        q = Adist.shard_vector(np.asarray(ck.q), mesh)
         rng.bit_generator.state = ck.rng_state
         restart = nconv < config.n_wanted
 
@@ -510,7 +484,7 @@ def dist_restarted_ca_lanczos(
             if nconv:
                 Qc = Adist.gather_columns(Qconv)[:, :nconv]
                 q_h = q_h - Qc @ (Qc.T @ q_h)
-            q = Adist.shard_entry(q_h / np.linalg.norm(q_h), mesh)
+            q = Adist.shard_vector(q_h / np.linalg.norm(q_h), mesh)
         elif restart:
             # Start vector from the chosen non-converged Ritz vector
             # (restarted_ca_lanczos.m:177-180), computed on the mesh.

@@ -1,12 +1,11 @@
 """Multi-host runtime and scaling harness.
 
-The reference is single-process MATLAB; the TPU framework's
-"communication backend" is XLA's collective stack over ICI/DCN
-(SURVEY.md section 2b) — no custom transport.  This module provides the
-thin runtime glue:
+The reference is single-process MATLAB; the framework's "communication
+backend" is XLA's collective stack (SURVEY.md section 2b) — no custom
+transport.  This module provides the thin runtime glue:
 
-* ``initialize_multihost`` — jax.distributed bring-up for pod slices
-  (call once per host before building the mesh).
+* ``initialize_multihost`` — jax.distributed bring-up for multi-host
+  runs (call once per host before building the mesh).
 * ``scaling_sweep`` — weak/strong-scaling measurement of the distributed
   matrix-powers kernel across mesh widths: nnz/s and parallel efficiency
   per device count (the north-star scaling metric).  On a CPU
@@ -55,8 +54,8 @@ def scaling_sweep(
     the mesh (rows_per_device per device), ideal efficiency = flat time.
 
     n_hosts: build hierarchical ('host','chip') meshes with this many
-    hosts (mesh.make_hier_mesh) instead of the flat ring — the DCN-aware
-    collective path a real multi-host slice runs.
+    hosts (mesh.make_hier_mesh) instead of the flat ring — the
+    inter-host-aware collective path a multi-host run takes.
 
     Returns one record per device count with nnz/s and efficiency vs the
     smallest mesh."""

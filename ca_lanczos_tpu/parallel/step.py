@@ -22,73 +22,44 @@ from jax.sharding import Mesh, PartitionSpec
 
 from ca_lanczos_tpu.parallel.dist_orth import local_project, local_qr
 from ca_lanczos_tpu.parallel.dist_ell import DistEll, _ell_powers_local
-from ca_lanczos_tpu.parallel.dist_pell import DistPell, _pell_powers_local
 from ca_lanczos_tpu.parallel.distributed import DistDia, _powers_local
 from ca_lanczos_tpu.parallel.mesh import ROWS, RowAxes, row_axes, row_spec
 
 
-def partition_operator(A, mesh: Mesh, s_max: int, dist_format: str = "auto"):
+def partition_operator(A, mesh: Mesh, s_max: int):
     """Partition a host operator for row-sharded distribution.
 
-    DiaMatrix -> DistDia (fused Pallas local step when the shard shape
-    admits it); EllMatrix -> DistPell when ``dist_format="pell"`` (PELL
-    Pallas gather local step) else DistEll; an already-distributed
-    operator passes through.  Shared by every dist driver so they agree
-    on format semantics (reference seam: SpMV.m:1-9 takes any format)."""
-    from ca_lanczos_tpu.ops.spmv import DiaMatrix, EllMatrix
-
+    DiaMatrix -> DistDia; EllMatrix -> DistEll; BsrMatrix -> DistBsr; an
+    already-distributed operator passes through.  Shared by every dist
+    driver so they agree on format semantics (reference seam: SpMV.m:1-9
+    takes any format)."""
     from ca_lanczos_tpu.ops.bsr import BsrMatrix
+    from ca_lanczos_tpu.ops.spmv import DiaMatrix, EllMatrix
     from ca_lanczos_tpu.parallel.dist_bsr import DistBsr
 
-    if isinstance(A, (DistDia, DistEll, DistPell, DistBsr)):
+    if isinstance(A, (DistDia, DistEll, DistBsr)):
         return A
     if isinstance(A, BsrMatrix):
-        if dist_format in ("ilv", "pell"):
-            raise ValueError(
-                f"dist_format={dist_format!r} is not a BSR engine; block "
-                "operators distribute as DistBsr (dist_format='auto')"
-            )
         return DistBsr.from_bsr(A, mesh, s_max=s_max)
     if isinstance(A, EllMatrix):
-        if dist_format == "pell":
-            return DistPell.from_ell(A, mesh, s_max=s_max)
-        if dist_format == "ilv":
-            raise ValueError(
-                "dist_format='ilv' is the banded-DIA interleaved engine; "
-                "this operator is an EllMatrix — use dist_format='pell' "
-                "(Pallas gather local step) or 'auto'"
-            )
         return DistEll.from_ell(A, mesh, s_max=s_max)
     if isinstance(A, DiaMatrix):
-        if dist_format == "ilv":
-            # Padded-domain interleaved local step (632 vs 313 Gnnz/s at
-            # P=1, BENCHMARKS.md): shard vectors live in the padded
-            # interleaved domain; the driver must enter via
-            # ilv_shard_vector and decode outputs (driver.py handles it).
-            interp = not all(d.platform == "tpu" for d in mesh.devices.flat)
-            Ad = DistDia.from_dia(
-                A, mesh, s_max=s_max, fused=False, interpret=interp, ilv=True
-            )
-            if Ad.ilv_dflat is None:
-                raise ValueError(
-                    "dist_format='ilv': shard shape admits no interleaved "
-                    "layout (need f32, n_local % 1024 == 0, s*w <= 1024)"
-                )
-            return Ad
         return DistDia.from_dia(A, mesh, s_max=s_max)
     raise TypeError(
         f"cannot distribute operator of type {type(A).__name__}; pass a "
-        "DiaMatrix or EllMatrix (route raw matrices via "
+        "DiaMatrix, EllMatrix or BsrMatrix (route raw matrices via "
         "parallel.auto.route_dist_operator)"
     )
 
 
 def _local_powers_fn(A, s: int, axes: RowAxes = ROWS):
     """Uniform (operand_blocks..., x_local, diag, sub) -> (n_local, s+1)
-    powers closure for DistDia / DistEll / DistPell / DistBsr shards,
-    plus the operand arrays to thread through shard_map."""
+    powers closure for DistDia / DistEll / DistBsr shards, plus the
+    operand arrays to thread through shard_map."""
     from ca_lanczos_tpu.parallel.dist_bsr import DistBsr, _bsr_powers_local
-    from ca_lanczos_tpu.parallel.distributed import check_s_bound
+    from ca_lanczos_tpu.parallel.distributed import (
+        check_s_bound, dia_powers_statics,
+    )
 
     check_s_bound(A, s)
 
@@ -102,20 +73,6 @@ def _local_powers_fn(A, s: int, axes: RowAxes = ROWS):
 
         return body_bsr, (A.vals, A.cols)
 
-    if isinstance(A, DistPell):
-        pell_kw = dict(
-            halo=A.halo, n_shards=A.n_shards, s=s, periodic=A.periodic,
-            tile=A.tile, k_slots=A.k_slots, sw=A.sw, n_win=A.n_win,
-            n_x=A.n_x, interpret=A.interpret, axes=axes,
-        )
-
-        def body_pell(v_b, l_b, cb_b, sp_b, x_local, dg, sb):
-            return _pell_powers_local(
-                v_b[0], l_b[0], cb_b[0], sp_b[0], x_local, dg, sb, **pell_kw
-            )
-
-        return body_pell, (A.vals, A.lidx, A.cbase, A.span_row)
-
     if isinstance(A, DistEll):
         def body_ell(v_block, c_block, x_local, dg, sb):
             return _ell_powers_local(
@@ -126,66 +83,12 @@ def _local_powers_fn(A, s: int, axes: RowAxes = ROWS):
 
         return body_ell, (A.vals, A.cols)
 
-    if isinstance(A, DistDia) and A.ilv_dflat is not None and A.dflat is None:
-        # Padded-domain interleaved step: x_local is the shard's
-        # (ilv_m_pad,) padded-domain vector with ZERO ghosts (the driver
-        # invariant: entry via ilv_shard_vector, and every output column
-        # below is ghost-zeroed, so linear combinations preserve it).
-        # ilv_padded_powers refreshes ghosts from neighbor centers, runs
-        # the kernel, and the polluted output ghosts are re-zeroed so
-        # the psum Gram sees each global row exactly once.
-        import jax.numpy as jnp
-
-        from ca_lanczos_tpu.ops.pallas_ilv import J as _J
-        from ca_lanczos_tpu.parallel.distributed import (
-            ILV_HALO_Q, ilv_padded_powers, ilv_statics,
-        )
-
-        st = ilv_statics(A, s, axes)
-        nqp = A.ilv_m_pad // _J
-        nq = A.n_local // _J
-
-        def body_ilv(iflat_block, x_local, dg, sb):
-            # Kernel seam: the ilv kernel is f32-only, but driver STATE
-            # dtype is caller-controlled (an f64 entry vector keeps the
-            # whole orthogonalization stack f64, exactly like the
-            # natural-layout engines — the dist IRL driver's repeated
-            # basis compressions need this; round-3 red test).  Cast to
-            # the kernel dtype here only, return powers at state dtype.
-            xk = x_local.astype(iflat_block.dtype)
-            V2, _ = ilv_padded_powers(iflat_block[0], xk, dg, sb, **st)
-            for r in range(_J):  # zero output ghost lanes (2-D slices)
-                V2 = jax.lax.dynamic_update_slice(
-                    V2, jnp.zeros((s, ILV_HALO_Q), V2.dtype), (0, r * nqp))
-                V2 = jax.lax.dynamic_update_slice(
-                    V2, jnp.zeros((s, ILV_HALO_Q), V2.dtype),
-                    (0, r * nqp + ILV_HALO_Q + nq))
-            return jnp.concatenate(
-                [x_local[:, None], V2.T.astype(x_local.dtype)], axis=1)
-
-        return body_ilv, (A.ilv_dflat,)
-
-    from ca_lanczos_tpu.parallel.distributed import (
-        dia_powers_operands, dia_powers_statics,
-    )
-
-    operands, names = dia_powers_operands(A)
     statics = dia_powers_statics(A, s, axes)
 
-    def body_dia(*args):
-        *blocks, x_local, dg, sb = args
-        extra = {nm: blk[0] for nm, blk in zip(names, blocks[1:])}
-        return _powers_local(blocks[0][0], x_local, dg, sb, **extra, **statics)
+    def body_dia(data_block, x_local, dg, sb):
+        return _powers_local(data_block[0], x_local, dg, sb, **statics)
 
-    return body_dia, operands
-
-
-def _powers_check_vma(A) -> bool:
-    """shard_map vma-check setting for a powers-carrying body: Pallas
-    interpret mode (CPU tests) cannot propagate varying manual axes
-    through pallas_call, so the check comes off for DistPell-interpret
-    only; real-TPU and non-Pallas paths keep it."""
-    return not (isinstance(A, DistPell) and A.interpret)
+    return body_dia, (A.data,)
 
 
 def newton_coeffs(Bk: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -207,7 +110,7 @@ def dist_first_block(
     qr_method: str = "tsqr", mp: bool = False,
 ):
     """First CA block: V = powers(q); [Q, R] = TSQR(V)
-    (ca_lanczos.m:176-182).  A is a DistDia or DistEll; returns
+    (ca_lanczos.m:176-182).  A is a distributed operator; returns
     (Q (n, s+1) sharded, R (s+1, s+1)).  mp: float64 Gram/R reductions
     (OrthParams.mixed_precision) while the basis stays f32."""
     axes = row_axes(mesh)
@@ -224,7 +127,6 @@ def dist_first_block(
         mesh=mesh,
         in_specs=tuple([row_spec(mesh)] * (len(operands) + 1)) + (PartitionSpec(), PartitionSpec()),
         out_specs=(row_spec(mesh), PartitionSpec()),
-        check_vma=_powers_check_vma(A),
     )(*operands, q, diag, sub)
 
 
@@ -259,5 +161,4 @@ def dist_ca_block(
         mesh=mesh,
         in_specs=tuple([row_spec(mesh)] * (len(operands) + 1)) + (PartitionSpec(), PartitionSpec()),
         out_specs=(row_spec(mesh), PartitionSpec(), PartitionSpec()),
-        check_vma=_powers_check_vma(A),
     )(*operands, Q_prev, diag, sub)

@@ -4,7 +4,7 @@ Extends an existing factorization A Q_k = Q_{k+1} H by CGS-orthogonalizing
 each new A q_j against ALL previous basis vectors; the alternative inner
 iteration for the implicitly-restarted driver (commented call sites at
 impl_restarted_ca_lanczos.m:89,94).  The projection h = Q^H (A q) and the
-update are MXU matmuls; H bookkeeping is host math.
+update are device matmuls; H bookkeeping is host math.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.ops.spmv import Operator, spmv
 
 
@@ -31,11 +32,11 @@ def _arnoldi_step(A: Operator, Q: jax.Array, j: jax.Array, reorth: bool = False)
     w = spmv(A, Q[:, j])
     mask = (jnp.arange(Q.shape[1]) <= j).astype(Q.dtype)
     Qm = Q * mask[None, :]
-    h = Qm.conj().T @ w
-    w = w - Qm @ h
+    h = mm(Qm.conj().T, w)
+    w = w - mm(Qm, h)
     if reorth:
-        h2 = Qm.conj().T @ w
-        w = w - Qm @ h2
+        h2 = mm(Qm.conj().T, w)
+        w = w - mm(Qm, h2)
         h = h + h2
     g = jnp.linalg.norm(w)
     return w / g, h, g

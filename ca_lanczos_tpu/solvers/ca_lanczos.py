@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.basis.leja import leja
 from ca_lanczos_tpu.basis.newton import newton_basis_matrix
 from ca_lanczos_tpu.config import Basis, LejaVariant, Orth, OrthParams
@@ -179,7 +180,7 @@ def ca_lanczos(
                 n_reorth += 1
                 nritz = len(conv)
                 Vc = jnp.asarray(Vp[:, conv], dtype)
-                QR_raw = Q[:, : s * k] @ Vc
+                QR_raw = mm(Q[:, : s * k], Vc)
                 QR, _, _ = normalize(QR_raw, params=params)
 
         elif orth == Orth.PERIODIC:

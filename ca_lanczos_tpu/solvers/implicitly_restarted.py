@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ca_lanczos_tpu.ops.precision import mm, vdot
 from ca_lanczos_tpu.basis.leja import LejaVariant, leja
 from ca_lanczos_tpu.basis.newton import newton_basis_matrix
 from ca_lanczos_tpu.config import Basis, Orth
@@ -145,7 +146,7 @@ def _std_extend(
         r = spmv(A, V[:, j])
         if j > 0:
             r = r - jnp.asarray(beta_prev, dtype) * V[:, j - 1]
-        alpha = float(np.real(jnp.vdot(V[:, j], r)))
+        alpha = float(np.real(vdot(V[:, j], r)))
         r = r - alpha * V[:, j]
         if orth == Orth.FULL:
             # Cleanup pass against the whole basis with the conventional
@@ -347,9 +348,9 @@ def impl_restarted_ca_lanczos(
 
         # Truncate the active window to ka_target columns (:110-114).
         kc = nlock + ka_target
-        Vk_new = V[:, :m_eff] @ jnp.asarray(Q[:, nlock:kc], dtype)
+        Vk_new = mm(V[:, :m_eff], jnp.asarray(Q[:, nlock:kc], dtype))
         r_new = (
-            V[:, :m_eff] @ jnp.asarray(Q[:, kc] * H[kc, kc - 1], dtype)
+            mm(V[:, :m_eff], jnp.asarray(Q[:, kc] * H[kc, kc - 1], dtype))
             + r_vec * Q[m_eff - 1, kc - 1]
         )
         beta_k = float(jnp.linalg.norm(r_new))
@@ -376,7 +377,7 @@ def impl_restarted_ca_lanczos(
                 if not conv[i]:
                     continue
                 if verify_locked:
-                    x = Vk_new @ jnp.asarray(Y[:, i], dtype)
+                    x = mm(Vk_new, jnp.asarray(Y[:, i], dtype))
                     true_abs = float(jnp.linalg.norm(spmv(A, x) - float(d[i]) * x))
                     if true_abs > 0.01 * norm_A:
                         continue
@@ -395,7 +396,7 @@ def impl_restarted_ca_lanczos(
             # Transform to eigencoordinates: locked block first, then the
             # re-tridiagonalized remainder (Hessred role, :535-556).
             Yl = Y[:, lock_idx]
-            V_lock_add = Vk_new @ jnp.asarray(Yl, dtype)
+            V_lock_add = mm(Vk_new, jnp.asarray(Yl, dtype))
             d_locked.extend(d[lock_idx])
             rnorm_locked.extend(rnorms[lock_idx])
             n_purged += len(purge_idx)
@@ -406,11 +407,11 @@ def impl_restarted_ca_lanczos(
                 wn = np.linalg.norm(w)
                 if wn > 0:
                     U, Ttri = _retridiagonalize(d_rest, w)
-                    V_act = Vk_new @ jnp.asarray(Y[:, keep] @ U, dtype)
+                    V_act = mm(Vk_new, jnp.asarray(Y[:, keep] @ U, dtype))
                     beta_eff = beta_k * wn
                 else:  # residual fully in locked/purged directions
                     U, Ttri = np.eye(ka), np.diag(d_rest)
-                    V_act = Vk_new @ jnp.asarray(Y[:, keep], dtype)
+                    V_act = mm(Vk_new, jnp.asarray(Y[:, keep], dtype))
                     beta_eff = 0.0
             else:
                 Ttri = np.zeros((0, 0))
@@ -499,7 +500,7 @@ def impl_restarted_ca_lanczos(
         if i < nlock:
             cols.append(V[:, i])
         else:
-            cols.append(V[:, nlock:kc] @ jnp.asarray(Y_a[:, i - nlock], dtype))
+            cols.append(mm(V[:, nlock:kc], jnp.asarray(Y_a[:, i - nlock], dtype)))
     Q_conv = jnp.stack(cols, axis=1) if cols else None
     return IRLResult(
         eigs=eigs,

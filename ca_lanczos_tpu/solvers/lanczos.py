@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ca_lanczos_tpu.ops.precision import mm, vdot
 from ca_lanczos_tpu.config import Orth
 from ca_lanczos_tpu.ops.orth import project_and_normalize
 from ca_lanczos_tpu.ops.spmv import Operator, normest, spmv
@@ -42,7 +43,7 @@ def _lanczos_step(A: Operator, qj: jax.Array, qjm1: jax.Array, beta_prev: jax.Ar
 
     (lanczos.m:103-110.)"""
     r = spmv(A, qj) - beta_prev * qjm1
-    alpha = jnp.vdot(qj, r)
+    alpha = vdot(qj, r)
     r = r - alpha * qj
     beta = jnp.linalg.norm(r)
     return r / beta, alpha, beta
@@ -55,7 +56,7 @@ def _project_all_masked(Q: jax.Array, q: jax.Array, j: jax.Array) -> jax.Array:
     only, no renormalization, matching the reference."""
     mask = (jnp.arange(Q.shape[1]) < j).astype(Q.dtype)
     Qm = Q * mask[None, :]
-    return q - Qm @ (Qm.conj().T @ q)
+    return q - mm(Qm, mm(Qm.conj().T, q))
 
 
 @dataclasses.dataclass
@@ -138,7 +139,7 @@ def lanczos(
                 n_reorth += 1
                 nritz = len(conv)
                 Vc = jnp.asarray(Vp[:, conv], dtype)
-                QR = Q[:, :j] @ Vc
+                QR = mm(Q[:, :j], Vc)
             if nritz > 0 and QR is not None:
                 res = project_and_normalize([QR], Q[:, j], reorth=False)
                 Q = Q.at[:, j].set(res.Q)

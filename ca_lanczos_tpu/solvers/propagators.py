@@ -6,8 +6,8 @@ runLanczos.m (1-D harmonic oscillator, N=512, dt=0.025, 200 steps, s=6,
 
 Dtype note: the wavefunction is complex while the Hamiltonian is real
 symmetric.  On CPU (and for parity tests) the Krylov recurrence runs in
-native complex128; on TPU serving paths, run the SpMV on a stacked
-(n, 2) real view (re/im columns ride the same kernel) — the DIA/ELL
+native complex128; the split paths run the SpMV on a stacked (n, 2)
+real view (re/im columns ride the same kernel) — the DIA/ELL
 matvecs accept multivectors, so ``spmv(H, psi_ri)`` is the split form.
 
 The small-T exponential uses the eigendecomposition of the (symmetrized)
@@ -28,6 +28,7 @@ import numpy as np
 import scipy.linalg
 from jax import lax
 
+from ca_lanczos_tpu.ops.precision import mm, vdot
 from ca_lanczos_tpu.basis.leja import leja
 from ca_lanczos_tpu.basis.newton import newton_basis_matrix
 from ca_lanczos_tpu.config import Basis, LejaVariant, Orth
@@ -58,7 +59,7 @@ class PropResult:
         m = self.T.shape[0]
         E = _expm_tridiag(self.T, dt)
         coeff = jnp.asarray(E[:m, 0] * nrm, self.Q.dtype)
-        return self.Q @ coeff
+        return mm(self.Q, coeff)
 
 
 def _expm_tridiag(T: np.ndarray, dt: float) -> np.ndarray:
@@ -75,7 +76,7 @@ def _expm_tridiag(T: np.ndarray, dt: float) -> np.ndarray:
 def _prop_step(H: Operator, qj: jax.Array, qjm1: jax.Array, beta_prev: jax.Array):
     """One complex Lanczos step (lanczos_prop.m:31-41)."""
     r = spmv(H, qj) - beta_prev * qjm1
-    alpha = jnp.real(jnp.vdot(qj, r))
+    alpha = jnp.real(vdot(qj, r))
     r = r - alpha * qj
     beta = jnp.linalg.norm(r)
     return r / beta, alpha, beta
@@ -260,8 +261,9 @@ def propagate(
 # ---------------------------------------------------------------------------
 # Real/imag-split path: complex wavefunction as an (n, 2) real multivector.
 #
-# TPU backends without a (working) complex lowering run the whole Krylov
-# recurrence in real arithmetic: the Hamiltonian is real symmetric, so
+# These paths run the whole Krylov recurrence in real arithmetic (for
+# backends or kernels without complex support): the Hamiltonian is real
+# symmetric, so
 # spmv(H, psi_ri) on the stacked [re, im] columns IS the complex SpMV, and
 # the Lanczos coefficients are real.  Only the final exp(-i dt T) e1
 # coefficients are complex — applied as a 2x2 real rotation per column.
@@ -310,8 +312,8 @@ class SplitPropResult:
         cr = jnp.asarray(np.real(c), self.Q.dtype)
         ci = jnp.asarray(np.imag(c), self.Q.dtype)
         Qre, Qim = self.Q[:, 0, :], self.Q[:, 1, :]
-        out_re = Qre @ cr - Qim @ ci
-        out_im = Qre @ ci + Qim @ cr
+        out_re = mm(Qre, cr) - mm(Qim, ci)
+        out_im = mm(Qre, ci) + mm(Qim, cr)
         return jnp.stack([out_re, out_im], axis=1)
 
 
@@ -325,7 +327,7 @@ def lanczos_prop_split(
 ) -> SplitPropResult:
     """lanczos_prop on the split representation — numerically identical
     to the complex path for real symmetric H (lanczos_prop.m:15-61), but
-    runs entirely in real arithmetic (TPU-safe)."""
+    runs entirely in real arithmetic."""
     psi = _to_split(r0)
     n = psi.shape[0]
     nrm = float(jnp.sqrt(jnp.sum(psi * psi)))
@@ -404,7 +406,7 @@ def ca_lanczos_prop_split(
     eigest: Optional[np.ndarray] = None,
     adaptive: bool = False,
 ) -> SplitPropResult:
-    """ca_lanczos_prop on the real/imag-split representation (TPU-safe).
+    """ca_lanczos_prop on the real/imag-split representation.
 
     Identical block structure (ca_lanczos_prop.m:49-129) with the block
     orthogonalization decomposed into real Gram/update kernels
@@ -482,7 +484,7 @@ def ca_lanczos_prop_split(
 
 @partial(jax.jit, static_argnames=("krylov_dim", "n_steps"))
 def _propagate_split_fused(H: Operator, psi0: jax.Array, dt, krylov_dim: int, n_steps: int):
-    """The whole propagation loop as ONE XLA program (TPU production path).
+    """The whole propagation loop as ONE XLA program.
 
     Per time step: a fixed-krylov_dim split Lanczos recurrence
     (lax.scan), on-device eigh of the small tridiagonal T, and the
@@ -522,12 +524,13 @@ def _propagate_split_fused(H: Operator, psi0: jax.Array, dt, krylov_dim: int, n_
         d, V = jnp.linalg.eigh(T)
         # c = V exp(-i dt d) V^T e1 * nrm, via real cos/sin parts.
         ve1 = V[0, :] * nrm
-        cr = V @ (jnp.cos(dt * d) * ve1)
-        ci = V @ (-jnp.sin(dt * d) * ve1)
+        cr = mm(V, jnp.cos(dt * d) * ve1)
+        ci = mm(V, -jnp.sin(dt * d) * ve1)
 
         # psi_new = sum_j Q[:, j] * (cr[j] + i ci[j]) in split form; rebuild
         # the basis by re-running the recurrence (trades flops for the
-        # O(n*m) memory of storing Q — n*m*8B can exceed HBM for large n).
+        # O(n*m) memory of storing Q — n*m*8B can exceed device memory
+        # for large n).
         def accum_step(carry, coeffs):
             q_prev, q, b_prev, acc = carry
             a_j, b_j, crj, cij = coeffs
@@ -632,8 +635,8 @@ def _propagate_split_fused_adaptive(
         T = jnp.diag(amask) + jnp.diag(bmask, 1) + jnp.diag(bmask, -1)
         d, V = jnp.linalg.eigh(T)
         ve1 = V[0, :] * nrm
-        cr = V @ (jnp.cos(dt * d) * ve1)
-        ci = V @ (-jnp.sin(dt * d) * ve1)
+        cr = mm(V, jnp.cos(dt * d) * ve1)
+        ci = mm(V, -jnp.sin(dt * d) * ve1)
 
         def acc_cond(c):
             _, _, _, _, j = c

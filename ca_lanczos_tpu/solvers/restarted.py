@@ -33,6 +33,7 @@ import numpy as np
 from ca_lanczos_tpu.config import Basis, LanczosConfig, Orth, OrthParams, RestartStrategy
 from ca_lanczos_tpu.ops.matrix_powers import matrix_powers
 from ca_lanczos_tpu.ops.orth import normalize, project, project_and_normalize
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.ops.spmv import Operator, normest, spmv
 from ca_lanczos_tpu.solvers._block import block_T, extend_T, first_block_T
 from ca_lanczos_tpu.solvers.ca_lanczos import build_basis_matrix
@@ -102,7 +103,7 @@ def _generate_start_vector(
         idx = k + int(np.argmin(np.where(ok, ritz_norms[k:], np.inf)))
     else:  # RANDOM
         idx = k + int(rng.choice(np.flatnonzero(ok)))
-    q = Q_new @ jnp.asarray(Vp[:, idx], Q_new.dtype)
+    q = mm(Q_new, jnp.asarray(Vp[:, idx], Q_new.dtype))
     return q / jnp.linalg.norm(q)
 
 
@@ -246,7 +247,7 @@ def _std_inner(
             if len(conv) > nritz:
                 nritz = len(conv)
                 Vc = jnp.asarray(Vp[:, conv], dtype)
-                QR, _, _ = normalize(Q[:, :j] @ Vc, params=params)
+                QR, _, _ = normalize(mm(Q[:, :j], Vc), params=params)
         elif orth == Orth.PERIODIC:
             # Full-matrix error test (restarted_lanczos.m:336-342).
             om = omega.update(alpha[:j], beta[:j])
@@ -326,7 +327,7 @@ def restarted_lanczos(
         k_est = k  # estimate-converged prefix (locked OR verify-rejected)
         verified = 0
         for i in range(k):
-            x = Q_new @ jnp.asarray(Vp[:, i], dtype)
+            x = mm(Q_new, jnp.asarray(Vp[:, i], dtype))
             if verify_locked:
                 true_abs = float(jnp.linalg.norm(spmv(A, x) - float(d[i]) * x))
                 if true_abs > _verify_gate(
@@ -467,7 +468,7 @@ def _ca_inner(
             if len(conv) > nritz:
                 nritz = len(conv)
                 Vc = jnp.asarray(Vp[:, conv], dtype)
-                QR, _, _ = normalize(Q[:, : s * k] @ Vc, params=params)
+                QR, _, _ = normalize(mm(Q[:, : s * k], Vc), params=params)
         elif orth == Orth.PERIODIC:
             # Blocked omega recurrence; trigger sqrt(eps/(k*s))
             # (restarted_ca_lanczos.m:531-546).
@@ -575,7 +576,7 @@ def restarted_ca_lanczos(
         k_est = k  # estimate-converged prefix (locked OR verify-rejected)
         verified = 0
         for i in range(k):
-            x = Q_new @ jnp.asarray(Vp[:, i], dtype)
+            x = mm(Q_new, jnp.asarray(Vp[:, i], dtype))
             true_abs = float(jnp.linalg.norm(spmv(A, x) - float(d[i]) * x))
             if config.verify_locked and true_abs > _verify_gate(
                     ritz_norms[i], norm_A,
@@ -591,7 +592,7 @@ def restarted_ca_lanczos(
         # (restarted_ca_lanczos.m:154-159).
         nc_order = np.argsort(d[k:])[::-1]
         for j, i in enumerate(nc_order[: max(0, config.n_wanted - nconv - verified)]):
-            x = Q_new @ jnp.asarray(Vp[:, k + i], dtype)
+            x = mm(Q_new, jnp.asarray(Vp[:, k + i], dtype))
             row[nconv + verified + j] = _relative_residual(A, x, float(d[k + i]))
         rnorm_rows.append(row)
 

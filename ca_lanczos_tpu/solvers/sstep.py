@@ -8,7 +8,7 @@ W\\b) — the Krylov block is NOT explicitly orthogonalized (monomial-like;
 numerically fragile by design, which is why the reference also has the
 QR-based ca_lanczos).
 
-TPU split: the SpMV chain, the fused 2s dot products, and the basis-update
+Device/host split: the SpMV chain, the fused 2s dot products, and the basis-update
 GEMMs are jitted device ops; the s x s solves and the index-heavy
 coefficient assembly (translated 1:1 from the reference's loops, 0-based)
 are host float64 math.
@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.ops.matrix_powers import matrix_powers_monomial
 from ca_lanczos_tpu.ops.spmv import Operator, spmv
 
@@ -47,14 +48,14 @@ def _dots_2s(P: jax.Array) -> jax.Array:
 def _next_p1(H: Operator, Vk: jax.Array, Vkm1: jax.Array, Es: jax.Array, Gs: jax.Array):
     """P(:,1) = H V{k}(:,s) - V{k-1} E(:,s) - V{k} G(:,s)
     (sstep_lanczos.m:111)."""
-    return spmv(H, Vk[:, -1]) - Vkm1 @ Es - Vk @ Gs
+    return spmv(H, Vk[:, -1]) - mm(Vkm1, Es) - mm(Vk, Gs)
 
 
 @jax.jit
 def _basis_update(P: jax.Array, Vk: jax.Array, t: jax.Array) -> jax.Array:
     """V{k+1}(:,j) = P(:,j) - V{k} t(:,j), with t(:,1) = 0
     (sstep_lanczos.m:157-160)."""
-    return P - Vk @ t
+    return P - mm(Vk, t)
 
 
 class _LocalOps:

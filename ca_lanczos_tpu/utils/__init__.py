@@ -18,6 +18,7 @@ from ca_lanczos_tpu.utils.profiling import (
     RooflineReport,
     measure_ca_iteration_throughput,
     measure_powers_throughput,
+    peak_hbm_bw,
     roofline_audit,
 )
 from ca_lanczos_tpu.utils.reorder import Reordering, rcm_reorder
@@ -42,6 +43,7 @@ __all__ = [
     "RooflineReport",
     "measure_ca_iteration_throughput",
     "measure_powers_throughput",
+    "peak_hbm_bw",
     "roofline_audit",
     "Reordering",
     "rcm_reorder",

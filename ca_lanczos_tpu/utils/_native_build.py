@@ -1,7 +1,7 @@
 """Content-addressed builds of the native helpers in ``native/``.
 
 The shared objects are built on demand next to their sources and named by
-a hash of the source text (``libpell.<sha8>.so``): a prebuilt or stale
+a hash of the source text (``libspmm.<sha8>.so``): a prebuilt or stale
 binary can never be loaded for edited sources.  Git checkouts do not
 preserve mtimes, so mtime-based staleness (the previous scheme) could
 silently load an old binary after a checkout (ADVICE r4); the binaries

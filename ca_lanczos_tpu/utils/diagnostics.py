@@ -14,12 +14,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ca_lanczos_tpu.ops.precision import mm
 from ca_lanczos_tpu.ops.spmv import Operator
 
 
 @jax.jit
 def _ritz_rnorm_jit(A: Operator, Q: jax.Array, Vp: jax.Array, d: jax.Array) -> jax.Array:
-    X = Q @ Vp  # Ritz vectors (n, m)
+    X = mm(Q, Vp)  # Ritz vectors (n, m)
     AX = A.matvec(X)
     num = jnp.linalg.norm(AX - X * d[None, :], axis=0)
     den = jnp.abs(d) * jnp.linalg.norm(X, axis=0)
@@ -40,7 +41,7 @@ def orth_error_fro(Q) -> float:
     """||I - Q^H Q||_F (restarted_ca_lanczos.m:166-167)."""
     Q = jnp.asarray(Q)
     m = Q.shape[1]
-    G = Q.conj().T @ Q
+    G = mm(Q.conj().T, Q)
     return float(jnp.linalg.norm(G - jnp.eye(m, dtype=G.dtype)))
 
 
@@ -53,7 +54,7 @@ def orth_error_last(Q) -> float:
     j = Q.shape[1]
     if j < 2:
         return 0.0
-    return float(jnp.max(jnp.real(Q[:, : j - 1].conj().T @ Q[:, j - 1])))
+    return float(jnp.max(jnp.real(mm(Q[:, : j - 1].conj().T, Q[:, j - 1]))))
 
 
 def orth_error_block(Q, s: int) -> float:
@@ -62,9 +63,9 @@ def orth_error_block(Q, s: int) -> float:
     Q = jnp.asarray(Q)
     j = Q.shape[1]
     if j > s + 1:
-        G = Q[:, : j - s - 1].conj().T @ Q[:, j - s - 1 :]
+        G = mm(Q[:, : j - s - 1].conj().T, Q[:, j - s - 1 :])
         return float(jnp.max(jnp.abs(G)))
-    G = Q.conj().T @ Q
+    G = mm(Q.conj().T, Q)
     return float(jnp.max(jnp.abs(G - jnp.eye(j, dtype=G.dtype))))
 
 

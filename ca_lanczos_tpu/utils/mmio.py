@@ -6,7 +6,7 @@ The reference's corpus is SuiteSparse .mat files loaded in MATLAB
 interchange format here is .mtx.  The native parser (native/mmio.cpp)
 streams multi-GB files at fscanf rate and expands symmetric storage;
 ``load_mtx`` returns COO numpy arrays, ``load_operator`` converts to the
-TPU operator formats (ELL for general sparsity, DIA when banded).
+device operator formats (ELL for general sparsity, DIA when banded).
 """
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ def load_mtx(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, 
 
 
 def load_operator(path: str, dtype=None, dia_max_diags: int = 32):
-    """Load a .mtx matrix as a TPU operator: DIA when the sparsity lives
+    """Load a .mtx matrix as a device operator: DIA when the sparsity lives
     on few diagonals, ELL otherwise."""
     import jax.numpy as jnp
     import scipy.sparse as sp

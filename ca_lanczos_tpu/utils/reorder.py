@@ -1,8 +1,7 @@
 """Bandwidth reduction: map general sparse matrices onto the fast banded path.
 
-TPU gathers are catastrophic (~0.1 Gnnz/s for ELL SpMV via XLA), while
-the banded DIA path runs at 375 Gnnz/s through the fused Pallas kernel
-(BENCHMARKS.md).  For most SuiteSparse-style symmetric matrices, a
+The banded DIA path needs no gather at all, while ELL pays one gather
+per stored entry.  For most SuiteSparse-style symmetric matrices, a
 reverse Cuthill-McKee reordering shrinks the bandwidth enough to store
 the matrix as DIA (or bounded-bandwidth ELL for the distributed halo
 machinery) — this module is that bridge.
@@ -54,8 +53,7 @@ def rcm_reorder(
     operator; returns the permuted operator in the narrowest format.
 
     The permuted matrix becomes DIA when it lives on few diagonals, else
-    bounded-bandwidth ELL (both feed the halo machinery and, for DIA f32,
-    the fused Pallas kernel).
+    bounded-bandwidth ELL (both feed the halo machinery).
     """
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee

@@ -80,9 +80,9 @@ def main():
                 )
                 rows.append(rec)
     # ---- Hierarchical (host x chip) meshes (round-5): same volumes,
-    # partitioned by transport — intra-host ppermute pairs ride ICI,
-    # only the 2*(H-1) host-boundary pairs cross DCN, and the psum tree
-    # reduces chip-level (ICI) before host-level (DCN).
+    # partitioned by transport — intra-host ppermute pairs stay inside a
+    # host, only the 2*(H-1) host-boundary pairs cross hosts, and the
+    # psum tree reduces chip-level before host-level.
     from ca_lanczos_tpu.parallel import make_hier_mesh
 
     def ppermute_perms(fn, *args):

@@ -5,5 +5,5 @@
 set -e
 cd "$(dirname "$0")"
 g++ -O2 -shared -fPIC -o libmmio.so mmio.cpp
-g++ -O3 -fopenmp -shared -fPIC -o libpell.so pell_encode.cpp
-echo "built $(pwd)/libmmio.so $(pwd)/libpell.so"
+g++ -O3 -fopenmp -shared -fPIC -o libspmm.so spmm.cpp
+echo "built $(pwd)/libmmio.so $(pwd)/libspmm.so"

@@ -178,21 +178,21 @@ class TestDistBsr:
         # Ritz values live inside the spectrum bounds
         assert evs.max() <= 4.2 and evs.min() >= 0.8
 
-    def test_route_rejects_wrong_engines(self):
+    def test_partition_routes_to_dist_bsr(self):
+        from ca_lanczos_tpu.parallel import DistBsr
         from ca_lanczos_tpu.parallel.step import partition_operator
 
         mesh = self._mesh()
         dense = _block_laplacian(n_blocks=64, bs=4)
         A = BsrMatrix.from_dense(dense, block_size=4)
-        with pytest.raises(ValueError):
-            partition_operator(A, mesh, s_max=4, dist_format="ilv")
-        with pytest.raises(ValueError):
-            partition_operator(A, mesh, s_max=4, dist_format="pell")
+        Ad = partition_operator(A, mesh, s_max=4)
+        assert isinstance(Ad, DistBsr)
+        assert partition_operator(Ad, mesh, s_max=4) is Ad
 
 
 class TestBsrToDia:
-    """Round-5 TPU-first finding: block-banded BSR converts to a scalar
-    DIA whose powers ride the banded kernels (ops/bsr.py to_dia)."""
+    """Block-banded BSR converts to a scalar DIA whose powers need no
+    gather (ops/bsr.py to_dia)."""
 
     def test_conversion_exact(self):
         rng = np.random.default_rng(0)

@@ -2,12 +2,15 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from ca_lanczos_tpu.config import LanczosConfig, Orth
 from ca_lanczos_tpu.solvers.restarted import restarted_ca_lanczos
 from ca_lanczos_tpu.utils.checkpoint import RestartCheckpoint
 from ca_lanczos_tpu.utils.matrices import diag_spectrum, laplacian_1d
-from ca_lanczos_tpu.utils.profiling import measure_powers_throughput, roofline_audit
+from ca_lanczos_tpu.utils.profiling import (
+    measure_powers_throughput, peak_hbm_bw, roofline_audit,
+)
 
 
 class TestCheckpoint:
@@ -55,7 +58,8 @@ class TestCheckpoint:
 class TestRoofline:
     def test_audit_model(self):
         A = laplacian_1d(4096, dtype=jnp.float32)
-        rep = roofline_audit(A, measured_nnz_per_s=1e9)
+        rep = roofline_audit(A, measured_nnz_per_s=1e9,
+                             hbm_bw=peak_hbm_bw("NVIDIA H100 80GB HBM3"))
         assert rep.nnz == 3 * 4096
         # DIA traffic: (3 + 2) * n * 4 bytes.
         assert rep.bytes_per_step == 5 * 4096 * 4
@@ -64,12 +68,29 @@ class TestRoofline:
 
     def test_measure_runs_on_cpu(self):
         A = laplacian_1d(2048, dtype=jnp.float32)
-        rate = measure_powers_throughput(A, s=2, reps_lo=1, reps_hi=3, trials=1)
+        rate = measure_powers_throughput(A, s=2, reps=3, trials=1)
         assert rate > 0
 
     def test_ca_iteration_throughput_runs(self):
         from ca_lanczos_tpu.utils.profiling import measure_ca_iteration_throughput
 
         A = laplacian_1d(2048, dtype=jnp.float32)
-        rate = measure_ca_iteration_throughput(A, s=2, blocks_lo=1, blocks_hi=3, trials=1)
+        rate = measure_ca_iteration_throughput(A, s=2, blocks=3, trials=1)
         assert rate > 0
+
+    def test_peak_table_rejects_unknown_device(self):
+        """A device missing from the peak table is an error, not a
+        default (and the CPU is not in it)."""
+        with pytest.raises(KeyError, match="no published memory bandwidth"):
+            peak_hbm_bw("cpu")
+        with pytest.raises(KeyError):
+            roofline_audit(laplacian_1d(64), hbm_bw=None)
+
+    def test_peak_table_h100(self):
+        assert peak_hbm_bw("NVIDIA H100 80GB HBM3") == 3.35e12
+
+    def test_copy_bandwidth_runs_on_cpu(self):
+        from ca_lanczos_tpu.utils.profiling import measure_copy_bandwidth
+
+        assert measure_copy_bandwidth(jnp.ones(4096, jnp.float32), reps=3,
+                                      trials=1) > 0

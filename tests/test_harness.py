@@ -374,7 +374,7 @@ class TestWhichSmallest:
 class TestEscalationLadder:
     """Ladder structure (round-3): probe-ordered drivers first, then the
     numerically-safe rescue rungs that close the s=10 Newton-conditioning
-    corpus holdouts (BENCHMARKS.md round-3 552/552)."""
+    corpus holdouts (results/corpus_summary.json: 552/552)."""
 
     def test_rungs_and_labels(self):
         from ca_lanczos_tpu.config import LanczosConfig, Orth
@@ -484,8 +484,7 @@ class TestEscalationLadder:
 
 class TestTwoStagePolish:
     """Round-5: solve_auto(polish=, over_lock=) — the two-stage pipeline
-    (loose solve + f64 Rayleigh-Ritz polish) as a first-class API
-    (BENCHMARKS.md: 11M end-to-end 68 s at 1.4e-11)."""
+    (loose solve + f64 Rayleigh-Ritz polish) as a first-class API."""
 
     def _op(self, n=4096):
         d = np.linspace(1.0, 90.0, n)

@@ -1,6 +1,6 @@
 """Mixed precision (OrthParams.mixed_precision): f32 basis storage with
 f64 Gram/R/T reductions must deliver near-f64 eigenpairs (VERDICT item 5;
-the TPU-native answer to f32's ~1e-2 hardware eigenvalue error)."""
+an answer to f32's large eigenvalue error on large operators)."""
 
 import dataclasses
 
@@ -129,8 +129,8 @@ class TestFusedMixedPrecision:
         assert res.converged
         got = np.sort(res.eigs)[::-1]
         # Plain f32 is chaotic on this problem (1.7e-7 on the 8-device
-        # CPU build, 5.5e-3 single-device, 0.85 on hardware — rounding-
-        # order dependent), which is exactly why mixed precision exists;
+        # CPU build, 5.5e-3 single-device — rounding-order dependent),
+        # which is exactly why mixed precision exists;
         # assert only the deterministic mp bound (measured 3.1e-6).
         assert np.max(np.abs(got - exact)) / 100.0 < 1e-4
 

@@ -89,7 +89,7 @@ class TestPropagateLoop:
 
 
 class TestSplitPath:
-    """Real/imag-split propagation (the TPU-safe path) must match the
+    """Real/imag-split propagation (the all-real path) must match the
     complex path to roundoff."""
 
     def test_matches_complex(self, ho):

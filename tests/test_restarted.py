@@ -153,7 +153,7 @@ class TestFusedRestarted:
         np.testing.assert_allclose(Q.T @ Q, np.eye(6), atol=1e-10)
 
     def test_cycles_per_call_matches_single_call(self):
-        """Relay-safe burst mode runs the same cycle transition: results
+        """Bounded burst mode runs the same cycle transition: results
         are bit-identical to the one-call while_loop, and on_burst sees
         monotone (cycle, nconv) progress at the burst boundary."""
         from ca_lanczos_tpu.solvers.fused_restarted import fused_restarted_ca_lanczos
